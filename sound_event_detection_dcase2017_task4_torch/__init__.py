@@ -1,10 +1,11 @@
 """sedx on PyTorch and CUDA: the port of ``sound_event_detection_dcase2017_task4_tpu``.
 
 The JAX package stays the reference; this package mirrors its module names
-(``config``, ``ops/stft``, ``models``, ``sed``, ``serving``) with PyTorch
-inside, and replaces each Pallas TPU kernel with a kernel written by hand for
-Hopper (``ops/logmel_cuda.py`` + ``ops/csrc/logmel.cu``). It imports
-``torch``, never ``jax``, and nothing of the JAX package.
+(``config``, ``ops/stft``, ``models``, ``losses``, ``train``, ``sed``,
+``serving``, ``data/hdf5``) with PyTorch inside, and replaces each Pallas TPU
+kernel with a kernel written by hand for Hopper (``ops/logmel_cuda.py`` +
+``ops/csrc/logmel.cu``). It imports ``torch``, never ``jax``, and nothing of
+the JAX package.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); see :func:`resolve_device`.
@@ -47,9 +48,13 @@ def __getattr__(name):
         "Predictor": ("serving", "Predictor"),
         "StreamingDetector": ("serving", "StreamingDetector"),
         "make_logmel_fn": ("ops.stft", "make_logmel_fn"),
+        "make_logmel_bank_fn": ("ops.stft", "make_logmel_bank_fn"),
         "load_jax_variables": ("weights", "load_jax_variables"),
+        "create_train_state": ("train", "create_train_state"),
+        "make_train_step": ("train", "make_train_step"),
     }
-    module_level = {"sed", "models", "serving", "weights", "ops"}
+    module_level = {"sed", "models", "serving", "weights", "ops", "train",
+                    "losses", "data"}
     if name in lazy:
         mod, attr = lazy[name]
         return getattr(importlib.import_module(f".{mod}", __name__), attr)

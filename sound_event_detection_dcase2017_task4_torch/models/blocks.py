@@ -7,9 +7,10 @@ Counterpart of ``sound_event_detection_dcase2017_task4_tpu/models/blocks.py``
   the model's public boundary keeps the JAX layout (``models/zoo.py``).
 * ``dtype`` is the compute type: weights stay float32 and are cast at use,
   as flax's ``dtype``/``param_dtype`` split does.
-* This slice is eval-only: train mode of ``BatchNorm`` and ``Dropout``
-  (biased-variance EMA with momentum 0.9; the 16-bit keep threshold) comes
-  with the training slice, ROADMAP A4, and raises until then.
+* Train mode is an explicit ``train`` argument, as in flax: ``BatchNorm``
+  takes batch statistics (biased variance, running statistics updated in
+  place with momentum 0.9) and ``Dropout`` draws its mask from an explicit
+  ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -19,11 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = ["ConvBlock", "AttBlock", "BatchNorm", "Dropout", "Dense",
-           "interpolate", "pad_framewise_output", "frames_after_pooling",
-           "TRAIN_MODE_TODO"]
-
-TRAIN_MODE_TODO = ("train mode (BatchNorm batch statistics, dropout) comes "
-                   "with the training slice, ROADMAP A4")
+           "interpolate", "pad_framewise_output", "frames_after_pooling"]
 
 
 class Dense(nn.Linear):
@@ -45,30 +42,65 @@ class Dense(nn.Linear):
 
 
 class Dropout(nn.Module):
-    """Identity in eval mode; the 16-bit-mask train mode is ROADMAP A4."""
+    """Dropout with the JAX package's quantised keep probability
+    (``blocks.py:31-65``): ``threshold = round((1 − rate)·65536)``, an
+    element is kept with probability ``threshold/65536`` (0.8 → 52429/65536)
+    and a kept value is ``x / keep`` with ``keep`` cast to x's dtype first
+    (in bf16 that divides by 0.80078125, as the JAX code does). Threshold
+    65536 is the identity, 0 gives zeros. Identity in eval mode.
+
+    The mask is ``torch.rand(..., generator=generator) < threshold/65536``:
+    exact in float32 on the CPU, whose uniform draws are multiples of 2⁻²⁴.
+    The two frameworks draw different bits; train mode without a generator
+    raises.
+    """
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if train and self.rate > 0.0:
-            raise NotImplementedError(TRAIN_MODE_TODO)
-        return x
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not train:
+            return x
+        if generator is None:
+            raise ValueError("train-mode Dropout needs an explicit "
+                             "torch.Generator")
+        threshold = int(round((1.0 - self.rate) * 65536))
+        if not 0 <= threshold <= 65536:
+            raise ValueError(f"dropout rate {self.rate} outside [0, 1]")
+        if threshold == 65536:
+            return x
+        if threshold == 0:
+            return torch.zeros_like(x)
+        # keep rounded to x's dtype, as a host number: no device traffic
+        keep = float(torch.tensor(threshold / 65536.0, dtype=x.dtype))
+        mask = torch.rand(x.shape, generator=generator,
+                          device=x.device) < threshold / 65536.0
+        return torch.where(mask, x / keep, x.new_zeros(()))
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channel dim 1, folded to ``y = x·a + b`` with
+    """BatchNorm over channel dim 1, folded to ``y = x·a + b`` with
     ``a = scale·rsqrt(var + eps)`` and ``b = bias − mean·a`` computed in
     float32 on ``[C]`` vectors, then cast to ``dtype`` (the reference's
-    ``BatchNorm``, ``blocks.py:103-117``). Variables ``weight``/``bias``/
+    ``BatchNorm``, ``blocks.py:68-117``). Variables ``weight``/``bias``/
     ``running_mean``/``running_var`` hold flax's ``scale``/``bias``/
-    ``mean``/``var``."""
+    ``mean``/``var``.
+
+    Train mode takes float32 batch statistics over every dim but 1:
+    ``mean = E[x]``, ``var = max(E[x²] − E[x]², 0)`` (biased), with
+    gradients through both; the running statistics are updated in place,
+    without gradient, as ``r = 0.9·r + 0.1·batch`` (flax returns them in a
+    new state). ``F.batch_norm(training=True)`` would update the running
+    variance with the unbiased estimate instead.
+    """
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 momentum: float = 0.9, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -77,9 +109,20 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            raise NotImplementedError(TRAIN_MODE_TODO)
-        a = self.weight * torch.rsqrt(self.running_var + self.epsilon)
-        b = self.bias - self.running_mean * a
+            dims = (0,) + tuple(range(2, x.ndim))
+            xf = x.to(torch.float32)
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        a = self.weight * torch.rsqrt(var + self.epsilon)
+        b = self.bias - mean * a
         shape = (1, -1) + (1,) * (x.ndim - 2)
         dt = self.compute_dtype
         return x * a.to(dt).view(shape) + b.to(dt).view(shape)

@@ -17,8 +17,12 @@ GRU recurrent kernels, zero biases, BatchNorm scale 1 / bias 0) from an
 explicit ``torch.Generator``; the two frameworks draw different numbers, so
 equivalence tests carry JAX weights across with ``weights.load_jax_variables``.
 
-This slice ports ``block="conv"`` with ``seq`` "none" or "gru" and all five
-heads; GLU blocks and the Transformer wait for ROADMAP A10.
+``forward(logmel, train=False, generator=None)``: train mode takes
+BatchNorm batch statistics (updating the running statistics in place) and
+draws dropout masks from ``generator``, as flax's ``train=True`` with a
+``dropout`` rng does. The port has ``block="conv"`` with ``seq`` "none" or
+"gru" and all five heads; GLU blocks and the Transformer wait for ROADMAP
+A10.
 """
 
 from __future__ import annotations
@@ -29,8 +33,8 @@ import torch
 from torch import nn
 
 from ..config import classes_num as _default_classes
-from .blocks import (TRAIN_MODE_TODO, AttBlock, ConvBlock, Dense, Dropout,
-                     interpolate, pad_framewise_output)
+from .blocks import (AttBlock, ConvBlock, Dense, Dropout, interpolate,
+                     pad_framewise_output)
 
 __all__ = ["BiGRU", "SedCnn", "MODEL_REGISTRY", "get_model"]
 
@@ -44,7 +48,10 @@ class BiGRU(nn.Module):
     It computes in its input's type; below float32 (bf16) its float32
     parameters are cast at use, as flax casts them. cuDNN runs both types
     (its ``elemWiseRNNcell`` kernel takes bf16 on the H100; ``chip_smoke.py``
-    checks that it ran).
+    checks that it ran). The r and z slices of ``bias_hh`` enter the call
+    multiplied by zero, so they stay out of the function and get no
+    gradient: the parameters that move are flax's. ``train`` sets the GRU's
+    own mode, which cuDNN needs for a backward.
     """
 
     def __init__(self, in_features: int, hidden: int = 256):
@@ -52,6 +59,9 @@ class BiGRU(nn.Module):
         self.hidden = hidden
         self.rnn = nn.GRU(in_features, hidden, batch_first=True,
                           bidirectional=True)
+        rz_off = torch.ones(3 * hidden)
+        rz_off[: 2 * hidden] = 0.0
+        self.register_buffer("rz_off", rz_off, persistent=False)
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         h = self.hidden
@@ -67,11 +77,12 @@ class BiGRU(nn.Module):
                 getattr(self.rnn, f"bias_ih_l0{sfx}").zero_()
                 getattr(self.rnn, f"bias_hh_l0{sfx}").zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype == self.rnn.weight_ih_l0.dtype:
-            return self.rnn(x)[0]
-        cast = {n: p.to(x.dtype) for n, p in self.rnn.named_parameters()}
-        return torch.func.functional_call(self.rnn, cast, (x,))[0]
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        self.rnn.train(train)
+        params = {n: p.to(x.dtype) for n, p in self.rnn.named_parameters()}
+        for n in ("bias_hh_l0", "bias_hh_l0_reverse"):
+            params[n] = params[n] * self.rz_off.to(x.dtype)
+        return torch.func.functional_call(self.rnn, params, (x,))[0]
 
 
 class SedCnn(nn.Module):
@@ -123,16 +134,18 @@ class SedCnn(nn.Module):
             if isinstance(m, (ConvBlock, Dense, BiGRU)):
                 m.reset_parameters(generator)
 
-    def forward(self, logmel: torch.Tensor, train: bool = False) -> dict:
-        if train:
-            raise NotImplementedError(TRAIN_MODE_TODO)
+    def forward(self, logmel: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> dict:
+        """``logmel [B, T, mel]`` → the output dict. ``train=True`` takes
+        BatchNorm batch statistics and runs dropout after every block with
+        masks from ``generator`` (required then)."""
         frames_num = logmel.shape[1]
         x = logmel[:, None].to(self.dtype)                    # [B, 1, T, F]
         for block, drop in zip(self.blocks, self.dropouts):
-            x = drop(block(x))
+            x = drop(block(x, train), train, generator)
         x = x.mean(dim=3).transpose(1, 2)                     # [B, T', C]
         if self.gru is not None:
-            x = self.gru(x)
+            x = self.gru(x, train)
         embedding = x
 
         if self.head == "att":

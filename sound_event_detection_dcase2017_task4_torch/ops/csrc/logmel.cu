@@ -1,9 +1,14 @@
-// Fused log-mel frontend for Hopper (sm_90a): padded waveform -> log-mel.
+// Fused log-mel frontend for Hopper (sm_90a): padded clip rows -> log-mel.
 //
-// Replaces the Pallas TPU kernel
-// sound_event_detection_dcase2017_task4_tpu/ops/pallas_logmel.py:logmel_pallas
-// (body `_kernel`). It computes what that kernel computes, not its TPU block
-// structure:
+// Replaces two Pallas TPU kernels of
+// sound_event_detection_dcase2017_task4_tpu/ops/pallas_logmel.py (one body,
+// `_kernel`, in both):
+//   * pallas_logmel.py:logmel_pallas — a batch of waveforms, reflect-padded
+//     by the wrapper (entry sedx_logmel_launch: float rows, no index);
+//   * pallas_logmel.py:logmel_pallas_bank — rows idx[b] gathered from a
+//     device-resident corpus bank staged as hop-chunk rows [N, n_rows, hop],
+//     float32 or int16 (entry sedx_logmel_bank_launch).
+// It computes what those kernels compute, not their TPU block structure:
 //
 //   frame f   = the `win` samples starting at f*hop of the centre-padded clip
 //   [Re | Im] = frame @ [Wcos | Wsin]       (Hann window folded into the basis,
@@ -11,22 +16,32 @@
 //                                            bank reads: 448 at the DCASE config)
 //   out       = 10*log10(max(amin, (Re^2 + Im^2) @ melW)) - ref_db
 //
-// The TPU kernel's hop-chunk staging and 128-lane padding exist only for
-// Mosaic; here a frame is a pointer offset f*hop into the padded waveform,
-// K = win, and bins are padded only to this kernel's pass width (BN).
+// The TPU kernels' hop-chunk staging and 128-lane padding exist only for
+// Mosaic; here a frame is a pointer offset f*hop into the padded clip, K =
+// win, and bins are padded only to this kernel's pass width (BN). A staged
+// bank row read flat IS the centre-padded clip followed by a zero tail, so
+// the in-kernel gather is one more pointer offset, idx[b]*row_len, which the
+// block loads itself (the TPU kernel's scalar-prefetched index map). An
+// int16 sample is converted to float as it is stored into shared memory;
+// its PCM scale (2^-15) is folded into the basis on the host, which is exact
+// (a power of two, and no scaled basis value underflows): q*(c*s) == (q*s)*c,
+// so the int16 launch is bit-equal to the float launch on the decoded rows.
 //
 // What bounds it: operations, for this algorithm. At the DCASE config one
-// clip needs 2*1001*(1024*896 + 448*64) = 1.894 GFLOP against ~1.3 MB of
-// waveform, far above the card's FLOP/byte balance point. (The function
-// needs less: an FFT's ~21 kFLOP per frame, so its floor is the bytes; see
-// flops_and_bytes in ops/logmel_cuda.py.) Design answer: neither the
-// frame matrix nor the power spectrogram ever reaches device memory (the
-// point of the TPU kernel too). A block owns TF frames of one clip; it walks
+// clip needs 2*1001*(1024*896 + 448*64) = 1.894 GFLOP (242.5 GFLOP for a
+// training batch of 128) against ~1.3 MB of float waveform (0.64 MB as
+// int16), far above the card's FLOP/byte balance point. The function needs
+// far less: an FFT's ~21 kFLOP per frame, 2.65 GFLOP for 128 clips, ~0.04 ms
+// at the f32 peak beside ~0.035 ms for its 82 MB of int16 and 33 MB of
+// output; see flops_and_bytes in ops/logmel_cuda.py. Design answer: neither
+// the frame matrix nor the power spectrogram ever reaches device memory, and
+// for a bank neither does the gathered batch nor its decoded float copy (the
+// point of the TPU kernels too). A block owns TF frames of one clip; it walks
 // the bins in passes of BN, and for each pass streams the basis through
 // shared memory in KT-row tiles while its frame rows come straight from the
-// padded waveform; the pass's power goes to shared memory and is projected
-// onto the mel bank at once, so only [TF, mel] sums live across passes.
-// Each thread keeps a 4-frame x 4-bin (Re, Im) register tile.
+// clip row; the pass's power goes to shared memory and is projected onto the
+// mel bank at once, so only [TF, mel] sums live across passes. Each thread
+// keeps a 4-frame x 4-bin (Re, Im) register tile.
 //
 // Precision: float32 FMA on the CUDA cores for both "highest" and "fast".
 // ("fast" is a single bf16 pass on the TPU; here it computes the same as
@@ -34,8 +49,10 @@
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //             -shared -Xcompiler -fPIC   (see ops/logmel_cuda.py)
-// Bound through ctypes: plain C entry points below; the launch returns
+// Bound through ctypes: plain C entry points below; each launch returns
 // cudaGetLastError() and the Python wrapper raises when it is not 0.
+
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
@@ -53,12 +70,17 @@ constexpr int S_POWER = S_BASIS + KT * 2 * BN;  // [TF][BN]
 constexpr int S_FRAMES = S_POWER + TF * BN;     // [TF][FSTRIDE]
 constexpr int S_MEL = S_FRAMES + ((TF * FSTRIDE + 3) / 4) * 4;  // [TF][mel]
 
+// T is the sample type (float, or int16_t for a quantised bank). Clip b is
+// row idx[b] of `rows` (row b when idx is null); a row holds row_len samples,
+// the centre-padded clip and, for a staged bank, its zero tail.
+template <typename T>
 __global__ void __launch_bounds__(NT)
-logmel_kernel(const float* __restrict__ xpad,    // [batch, padded_len]
+logmel_kernel(const T* __restrict__ rows,        // [n_rows_total, row_len]
+              const int* __restrict__ idx,       // [batch] or null
               const float* __restrict__ basis,   // [n_pass, k_pad, 2*BN]
               const float* __restrict__ melw,    // [n_pass*BN, mel_bins]
               float* __restrict__ out,           // [batch, n_frames, mel_bins]
-              int padded_len, int n_frames, int hop, int k_pad, int n_pass,
+              int row_len, int n_frames, int hop, int k_pad, int n_pass,
               int mel_bins, float amin, float ref_db) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -72,7 +94,8 @@ logmel_kernel(const float* __restrict__ xpad,    // [batch, padded_len]
   const int ty = tid / 16;          // frames ty*4 .. ty*4+3 of the tile
   const int b = blockIdx.x;
   const int f0 = blockIdx.y * TF;
-  const float* clip = xpad + static_cast<long long>(b) * padded_len;
+  const int row = idx != nullptr ? __ldg(idx + b) : b;
+  const T* clip = rows + static_cast<long long>(row) * row_len;
   const long long tile_start = static_cast<long long>(f0) * hop;
 
   for (int i = tid; i < TF * mel_bins; i += NT) s_mel[i] = 0.f;
@@ -96,9 +119,10 @@ logmel_kernel(const float* __restrict__ xpad,    // [batch, padded_len]
       for (int i = tid; i < TF * KT; i += NT) {
         const int f = i / KT, k = i % KT;
         const long long pos = tile_start + static_cast<long long>(f) * hop + k0 + k;
-        // samples past the clip belong to frames past n_frames (never
+        // samples past the row belong to frames past n_frames (never
         // written) or meet zero basis rows (k >= win): load them as 0
-        s_frames[f * FSTRIDE + k] = pos < padded_len ? __ldg(clip + pos) : 0.f;
+        s_frames[f * FSTRIDE + k] =
+            pos < row_len ? static_cast<float>(__ldg(clip + pos)) : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -166,6 +190,23 @@ int smem_bytes(int mel_bins) {
   return (S_MEL + TF * mel_bins) * static_cast<int>(sizeof(float));
 }
 
+template <typename T>
+int launch(const T* rows, const int* idx, const void* basis, const void* melw,
+           void* out, int batch, int row_len, int n_frames, int hop,
+           int k_pad, int n_pass, int mel_bins, float amin, float ref_db,
+           void* stream) {
+  const int smem = smem_bytes(mel_bins);
+  cudaError_t err = cudaFuncSetAttribute(
+      logmel_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(batch, (n_frames + TF - 1) / TF);
+  logmel_kernel<T><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      rows, idx, static_cast<const float*>(basis),
+      static_cast<const float*>(melw), static_cast<float*>(out), row_len,
+      n_frames, hop, k_pad, n_pass, mel_bins, amin, ref_db);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -179,16 +220,31 @@ int sedx_logmel_launch(const void* xpad, const void* basis, const void* melw,
                        void* out, int batch, int padded_len, int n_frames,
                        int hop, int k_pad, int n_pass, int mel_bins,
                        float amin, float ref_db, void* stream) {
-  const int smem = smem_bytes(mel_bins);
-  cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(batch, (n_frames + TF - 1) / TF);
-  logmel_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xpad), static_cast<const float*>(basis),
-      static_cast<const float*>(melw), static_cast<float*>(out), padded_len,
-      n_frames, hop, k_pad, n_pass, mel_bins, amin, ref_db);
-  return static_cast<int>(cudaGetLastError());
+  return launch(static_cast<const float*>(xpad), nullptr, basis, melw, out,
+                batch, padded_len, n_frames, hop, k_pad, n_pass, mel_bins,
+                amin, ref_db, stream);
+}
+
+// The bank entry: `bank` holds rows of row_len samples of sample_bytes each
+// (4: float, 2: int16); clip b is row idx[b] (every row in order when idx is
+// null). Returns cudaGetLastError(), or cudaErrorInvalidValue for another
+// sample size.
+int sedx_logmel_bank_launch(const void* bank, int sample_bytes,
+                            const void* idx, const void* basis,
+                            const void* melw, void* out, int batch,
+                            int row_len, int n_frames, int hop, int k_pad,
+                            int n_pass, int mel_bins, float amin,
+                            float ref_db, void* stream) {
+  const int* index = static_cast<const int*>(idx);
+  if (sample_bytes == 4)
+    return launch(static_cast<const float*>(bank), index, basis, melw, out,
+                  batch, row_len, n_frames, hop, k_pad, n_pass, mel_bins,
+                  amin, ref_db, stream);
+  if (sample_bytes == 2)
+    return launch(static_cast<const int16_t*>(bank), index, basis, melw, out,
+                  batch, row_len, n_frames, hop, k_pad, n_pass, mel_bins,
+                  amin, ref_db, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 const char* sedx_cuda_error_string(int code) {

@@ -12,11 +12,13 @@ import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from sound_event_detection_dcase2017_task4_tpu import config as jconfig
+from sound_event_detection_dcase2017_task4_tpu.ops import pallas_logmel as jpl
 from sound_event_detection_dcase2017_task4_tpu.ops import stft as jstft
 from sound_event_detection_dcase2017_task4_tpu.ops.pallas_logmel import logmel_pallas
 from sound_event_detection_dcase2017_task4_torch import config
@@ -174,6 +176,132 @@ def test_frontend_takes_plain_version_on_cpu(wave):
         stft.make_logmel_fn(cfg, precision="bf16")
     with pytest.raises(ValueError, match="CUDA tensor"):
         logmel_cuda.logmel_cuda(x, cfg)
+
+
+CHUNK_CFGS = [dict(),                                    # DCASE: [N, 1032, 320]
+              dict(clip_samples=16257, window_size=1152, hop_size=128,
+                   fmax=15000)]                           # not a hop multiple
+
+
+@pytest.mark.parametrize("kw", CHUNK_CFGS)
+@pytest.mark.parametrize("dtype", [np.float32, np.int16])
+def test_chunks_equal_jax_bit_for_bit(kw, dtype):
+    """Port ``prepare_chunks`` / ``unstage_chunks`` give the JAX package's
+    bytes, for numpy and tensor input, float32 and int16 (kept int16)."""
+    cfg, jcfg = _both_cfgs(**kw)
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, cfg.clip_samples) * 0.2
+    x = (np.round(x * 32768).astype(dtype) if dtype == np.int16
+         else x.astype(dtype))
+    want = np.asarray(jpl.prepare_chunks(x, jcfg))
+    n_rows = stft._geometry(cfg, cfg.clip_samples)[-1]
+    assert n_rows == jpl._geometry(jcfg, cfg.clip_samples)[-1]
+    if not kw:
+        assert want.shape == (2, 1032, 320)
+    for got in (stft.prepare_chunks(x, cfg),
+                stft.prepare_chunks(torch.from_numpy(x), cfg).numpy()):
+        assert got.dtype == want.dtype == dtype
+        assert got.shape == want.shape == (2, n_rows, cfg.hop_size)
+        assert got.tobytes() == want.tobytes()
+    back = stft.unstage_chunks(torch.from_numpy(want), cfg).numpy()
+    np.testing.assert_array_equal(back, x)
+    np.testing.assert_array_equal(
+        back, np.asarray(jpl.unstage_chunks(want, jcfg)))
+    with pytest.raises(ValueError, match="prepare_chunks"):
+        stft.unstage_chunks(torch.from_numpy(x), cfg)
+
+
+def _bank_case():
+    cfg, jcfg = _both_cfgs(clip_samples=32000)
+    rng = np.random.RandomState(12)
+    wave = rng.randn(4, cfg.clip_samples) * 0.1
+    wave[1] += 0.5 * np.sin(2 * np.pi * 1000.0 * np.arange(32000) / 32000.0)
+    q = np.clip(np.round(wave * 32768), -32768, 32767).astype(np.int16)
+    idx = np.array([2, 0, 2], np.int32)                  # a duplicate row
+    return cfg, jcfg, q, idx
+
+
+@pytest.mark.parametrize("kind", ["int16", "float32"])
+def test_bank_frontend_matches_jax(kind):
+    """``make_logmel_bank_fn`` on a CPU bank against the TPU bank kernel in
+    interpret mode and the JAX package's XLA bank frontend, for an int16
+    bank (scale 2⁻¹⁵) and its decoded float32 copy, with a duplicate index."""
+    cfg, jcfg, q, idx = _bank_case()
+    scale = 1.0 / 32768.0
+    src = q if kind == "int16" else q.astype(np.float32) * np.float32(scale)
+    ws = scale if kind == "int16" else None
+    bank = stft.prepare_chunks(src, cfg)
+    before = logmel_cuda.BANK_LAUNCHES
+    got = stft.make_logmel_bank_fn(cfg, wave_scale=ws)(
+        torch.from_numpy(bank), idx).numpy()
+    assert logmel_cuda.BANK_LAUNCHES == before
+    assert got.shape == (3, cfg.frames_num, cfg.mel_bins)
+    np.testing.assert_array_equal(got[0], got[2])
+    jbank = jnp.asarray(bank)
+    _assert_db_close(got, np.asarray(jpl.logmel_pallas_bank(
+        jbank, jnp.asarray(idx), jcfg, wave_scale=ws, interpret=True)))
+    _assert_db_close(got, np.asarray(jstft.make_logmel_bank_fn(
+        jcfg, use_pallas=False, wave_scale=ws)(jbank, jnp.asarray(idx))))
+    # the plain bank version is gather → decode → un-stage → logmel
+    dec = q.astype(np.float32) * np.float32(scale)
+    np.testing.assert_array_equal(
+        got, stft.logmel(torch.from_numpy(dec[idx]), cfg).numpy())
+
+
+def test_staged_input_equals_waveform_input():
+    """3-D staged rows to ``make_logmel_fn`` give exactly the 2-D result, as
+    in the JAX package, whose XLA frontend they match to the usual bound."""
+    cfg, jcfg, q, _ = _bank_case()
+    x = q.astype(np.float32) / 32768.0
+    fn = stft.make_logmel_fn(cfg)
+    flat = fn(torch.from_numpy(x))
+    staged = fn(torch.from_numpy(stft.prepare_chunks(x, cfg)))
+    torch.testing.assert_close(staged, flat, rtol=0, atol=0)
+    _assert_db_close(staged.numpy(), np.asarray(jstft.make_logmel_fn(jcfg)(
+        jnp.asarray(jpl.prepare_chunks(x, jcfg)))))
+
+
+def test_bank_frontend_rejects_what_jax_rejects():
+    """An integer bank without ``wave_scale``, a scale that is not a power of
+    two and the wrong chunk geometry raise, as ``logmel_pallas_bank``
+    does; a CUDA index tensor or an index out of range raise in the kernel
+    wrapper's host check."""
+    cfg, _, q, idx = _bank_case()
+    bank = torch.from_numpy(stft.prepare_chunks(q, cfg))
+    with pytest.raises(ValueError, match="wave_scale"):
+        stft.make_logmel_bank_fn(cfg)(bank, idx)
+    with pytest.raises(ValueError, match="power of two"):
+        stft.make_logmel_bank_fn(cfg, wave_scale=1e-4)(bank, idx)
+    with pytest.raises(ValueError, match="prepare_chunks"):
+        stft.make_logmel_bank_fn(cfg, wave_scale=2.0 ** -15)(
+            torch.from_numpy(q), idx)
+    with pytest.raises(ValueError):
+        stft.make_logmel_bank_fn(cfg, precision="bf16")
+    with pytest.raises(IndexError):
+        logmel_cuda._host_index(np.array([0, 4]), 4)
+    with pytest.raises(IndexError):
+        logmel_cuda._host_index(np.array([-1]), 4)
+    with pytest.raises(ValueError, match="1-D integer"):
+        logmel_cuda._host_index(np.array([0.0]), 4)
+    assert logmel_cuda._host_index(torch.tensor([3, 1]), 4).dtype == np.int32
+    with pytest.raises(ValueError, match="CUDA bank"):
+        logmel_cuda.logmel_cuda_bank(bank, idx, cfg, 2.0 ** -15)
+
+
+def test_bank_bound_counts_int16_bytes():
+    """``flops_and_bytes`` counts 2 bytes a sample for an int16 bank: at the
+    training batch of 128 clips the function's least work is bound by
+    operations, ≈ 0.04 ms at 67 TFLOP/s, beside 82 MB of int16 read."""
+    cfg = config.DEFAULT
+    flops, nbytes = logmel_cuda.flops_and_bytes(cfg, 128, cfg.clip_samples, 2)
+    assert nbytes == 2 * 128 * 320000 + 4 * (448 * 64 + 128 * 1001 * 64)
+    assert abs(flops / 1e9 - 2.65) < 0.01
+    assert flops / 67e12 > nbytes / 3.35e12
+    assert 0.03e-3 < flops / 67e12 < 0.05e-3
+    # a gather with a duplicate reads 127 distinct rows and the int32 index
+    f2, b2 = logmel_cuda.flops_and_bytes(cfg, 128, cfg.clip_samples, 2,
+                                         rows_read=127)
+    assert f2 == flops and b2 == nbytes - 2 * 320000 + 4 * 128
 
 
 def test_importing_the_kernel_module_needs_no_nvcc_or_gpu(tmp_path):

@@ -1,7 +1,8 @@
 """The port stands alone: it never imports jax, flax, optax or the JAX package.
 
-A subprocess imports the port and serves one CPU request, then checks
-``sys.modules``; a source scan checks every module of the port and
+A subprocess imports the port, serves one CPU request and takes one CPU
+train step over an int16 bank (after checking that ``create_train_state``
+with no device raises without a card), then checks ``sys.modules``; a source scan checks every module of the port and
 ``chip_smoke.py`` for such imports.
 """
 
@@ -20,6 +21,7 @@ def test_serving_a_request_loads_no_jax():
     code = (
         "import sys\n"
         "import numpy as np\n"
+        "import torch\n"
         "import sound_event_detection_dcase2017_task4_torch as sedt\n"
         "from sound_event_detection_dcase2017_task4_torch.models import SedCnn\n"
         "cfg = sedt.Config(clip_samples=16000)\n"
@@ -29,9 +31,24 @@ def test_serving_a_request_loads_no_jax():
         "out = pred(np.random.RandomState(0).randn(2, 16000).astype('float32'))\n"
         "assert out['event_activity'].shape == (2, 51, 17)\n"
         "assert len(pred.detect_events(np.zeros((1, 16000), 'float32'))) == 1\n"
+        "from sound_event_detection_dcase2017_task4_torch import train\n"
+        "from sound_event_detection_dcase2017_task4_torch.ops import stft\n"
+        "try:\n"
+        "    train.create_train_state(model)\n"
+        "    raise SystemExit('create_train_state() ran without a card')\n"
+        "except RuntimeError as e:\n"
+        "    assert 'CUDA' in str(e)\n"
+        "state = train.create_train_state(model, cfg, device='cpu')\n"
+        "bank = stft.prepare_chunks(np.zeros((3, 16000), np.int16), cfg)\n"
+        "step = train.make_train_step(\n"
+        "    model, state, bank=torch.from_numpy(bank),\n"
+        "    bank_frontend=stft.make_logmel_bank_fn(cfg, wave_scale=2.0 ** -15),\n"
+        "    mixup_alpha=1.0)\n"
+        "m = step(np.array([2, 0]), np.ones((2, 17), np.float32))\n"
+        "assert np.isfinite(float(m['loss'])) and state.step == 1\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('LOADED', bad)\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -70,3 +87,5 @@ def test_kernel_source_ships_with_the_package():
         assert f"constexpr int {name} = {value};" in src
     assert "sm_90a" in " ".join(logmel_cuda.NVCC_FLAGS)
     assert "pallas_logmel.py:logmel_pallas" in src
+    assert "pallas_logmel.py:logmel_pallas_bank" in src
+    assert "int sedx_logmel_bank_launch(" in src

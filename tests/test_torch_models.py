@@ -165,14 +165,102 @@ def test_init_is_seeded_and_flax_shaped():
 
 
 def test_train_mode_raises_until_the_training_slice(logmel):
+    """Train mode is ported; what still raises is train-mode dropout
+    without an explicit generator (no global generator is touched)."""
     m = SedCnn(**SMALL)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="Generator"):
         m(torch.from_numpy(logmel), train=True)
-    with pytest.raises(NotImplementedError, match="A4"):
-        BatchNorm(4)(torch.zeros(1, 4, 2, 2), train=True)
-    with pytest.raises(NotImplementedError, match="A4"):
+    with pytest.raises(ValueError, match="Generator"):
         Dropout(0.2)(torch.zeros(3), train=True)
+    out = m(torch.from_numpy(logmel), train=True,
+            generator=torch.Generator().manual_seed(0))
+    assert out["clipwise_output"].shape == (2, 17)
+    assert torch.isfinite(out["framewise_output"]).all()
+    assert BatchNorm(4)(torch.ones(1, 4, 2, 2), train=True).shape == (1, 4, 2, 2)
     assert torch.equal(Dropout(0.2)(torch.ones(3)), torch.ones(3))
+
+
+def _flax_bn(x_nhwc, scale, bias, mean, var):
+    """The JAX package's BatchNorm in train mode at float32: output, updated
+    statistics, and the input/scale/bias gradients of ``Σ out·w``."""
+    from sound_event_detection_dcase2017_task4_tpu.models.blocks import (
+        BatchNorm as JaxBatchNorm)
+
+    bn = JaxBatchNorm(use_running_average=False)
+    stats = {"mean": jnp.asarray(mean), "var": jnp.asarray(var)}
+    w = jnp.asarray(np.random.RandomState(9).randn(*x_nhwc.shape), jnp.float32)
+
+    def f(x, s, b):
+        out, mut = bn.apply({"params": {"scale": s, "bias": b},
+                             "batch_stats": stats}, x, mutable=["batch_stats"])
+        return jnp.sum(out * w), (out, mut["batch_stats"])
+
+    (_, (out, new)), grads = jax.value_and_grad(f, argnums=(0, 1, 2),
+                                                has_aux=True)(
+        jnp.asarray(x_nhwc), jnp.asarray(scale), jnp.asarray(bias))
+    return (np.asarray(out), np.asarray(new["mean"]), np.asarray(new["var"]),
+            [np.asarray(g) for g in grads], np.array(w))
+
+
+def test_batchnorm_train_matches_flax():
+    """Batch statistics (biased variance by E[x²] − E[x]²), the in-place
+    momentum-0.9 update of the running statistics, and the gradients of the
+    input, scale and bias (through mean and var) against the JAX package's
+    BatchNorm at float32, atol 1e-5."""
+    rng = np.random.RandomState(4)
+    c = 6
+    x = (rng.randn(3, 5, 7, c) * 2.0 + 0.5).astype(np.float32)   # NHWC
+    scale = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    bias = (0.3 * rng.randn(c)).astype(np.float32)
+    mean = (0.2 * rng.randn(c)).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, c).astype(np.float32)
+    j_out, j_mean, j_var, (j_gx, j_gs, j_gb), w = _flax_bn(x, scale, bias,
+                                                          mean, var)
+    bn = BatchNorm(c)
+    with torch.no_grad():
+        for t, a in ((bn.weight, scale), (bn.bias, bias),
+                     (bn.running_mean, mean), (bn.running_var, var)):
+            t.copy_(torch.from_numpy(a))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().requires_grad_()
+    out = bn(xt, train=True)
+    (out * torch.from_numpy(w).permute(0, 3, 1, 2)).sum().backward()
+    tol = dict(atol=1e-5, rtol=0)
+    np.testing.assert_allclose(out.detach().permute(0, 2, 3, 1).numpy(), j_out, **tol)
+    np.testing.assert_allclose(bn.running_mean.numpy(), j_mean, **tol)
+    np.testing.assert_allclose(bn.running_var.numpy(), j_var, **tol)
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), j_gx, **tol)
+    np.testing.assert_allclose(bn.weight.grad.numpy(), j_gs, **tol)
+    np.testing.assert_allclose(bn.bias.grad.numpy(), j_gb, **tol)
+    assert not bn.running_mean.requires_grad and not bn.running_var.requires_grad
+
+
+def test_dropout_train_mode():
+    """The quantised keep probability 52429/65536 and the division by
+    ``keep`` cast to x's dtype (exact, also in bf16); rate 0 and eval mode
+    are the identity; the same seed gives the same mask."""
+    g = lambda s: torch.Generator().manual_seed(s)             # noqa: E731
+    x = torch.rand(1000, generator=g(1)) + 0.5
+    assert torch.equal(Dropout(0.0)(x, train=True, generator=g(0)), x)
+    assert torch.equal(Dropout(0.2)(x, train=False), x)
+    assert not Dropout(1.0)(x, train=True, generator=g(0)).any()
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        y = Dropout(0.2)(xd, train=True, generator=g(2))
+        assert y.dtype == dt
+        kept = y != 0
+        keep = torch.tensor(52429 / 65536, dtype=dt)
+        assert torch.equal(y[kept], xd[kept] / keep)
+        if dt == torch.bfloat16:
+            assert float(keep) == 0.80078125
+    a = Dropout(0.2)(x, train=True, generator=g(5))
+    b = Dropout(0.2)(x, train=True, generator=g(5))
+    c = Dropout(0.2)(x, train=True, generator=g(6))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    # keep fraction over 10⁶ draws within 4σ of 52429/65536
+    n, p = 10 ** 6, 52429 / 65536
+    frac = float((Dropout(0.2)(torch.ones(n), train=True, generator=g(7)) != 0)
+                 .double().mean())
+    assert abs(frac - p) <= 4 * np.sqrt(p * (1 - p) / n)
 
 
 def test_upsampling_helpers():
