@@ -10,16 +10,18 @@ random weights, in phases that each raise on failure:
 
 1. the card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power
    limit;
-2. build the hand-written log-mel kernel (both entries) from
-   ``ops/csrc/logmel.cu`` with nvcc;
+2. build the hand-written log-mel kernel (a shared-memory FFT, both
+   entries) from ``ops/csrc/logmel.cu`` with nvcc; its registers and
+   spills (``-Xptxas -v``) and its dynamic shared memory per block;
 3. the waveform kernel against its plain PyTorch version on the card at the
    serving shape (16 clips): 0.1 dB absolute and rtol 2e-3 in the linear
    domain (the JAX package's own bound), TF32 off for both; physics probes
    (silence is exactly −100 dB, a 1 kHz tone peaks in the mel bin holding
-   1 kHz); bad inputs raise; times of the kernel, the plain version and a
-   ``torch.stft`` yardstick, against the function's least work (an FFT per
-   frame: bound by bytes) and, labelled apart, the floor of the kernel's
-   DFT-as-GEMM algorithm at the float32 peak;
+   1 kHz, an onset after half a clip of silence stays within the bound
+   with its silent frames exactly −100 dB); bad inputs raise; times of the
+   kernel, the plain version and a ``torch.stft`` yardstick, against the
+   function's least work (an FFT per frame: bound by bytes), with the
+   kernel's share of that bound and its ratio to the yardstick;
 4. the model's BiGRU at its serving shape in float32 and in bf16: each must
    run cuDNN's RNN cell; its device time and the bf16 error;
 5. the serving slice: a ``Predictor`` on the card serves a 16 × 10 s
@@ -36,7 +38,8 @@ random weights, in phases that each raise on failure:
    rows bit for bit, a float32 bank of the same clips must give the same
    result, and the kernel must agree with the plain ``logmel_bank`` within
    the bound above; bad inputs raise; times of the kernel, the wrapper, the
-   plain version and a gather + ``torch.stft`` yardstick;
+   plain version and a gather + ``torch.stft`` yardstick, the share of the
+   bound and the ratio to the yardstick;
 7. the training slice: ``create_train_state`` / ``make_train_step`` /
    ``make_eval_step`` over the bank at batch 128 in bf16 (mixup α = 1,
    dropout 0.2, per-bin mean −30 / std 15) for 30 steps without a host read
@@ -130,14 +133,29 @@ def phase_device(torch):
     return name, card
 
 
-def phase_build(logmel_cuda):
+def phase_build(logmel_cuda, cfg):
     t0 = time.perf_counter()
-    logmel_cuda.build()
+    lib = logmel_cuda.build()
     secs = time.perf_counter() - t0
     print(f"[build] ops/csrc/logmel.cu for sm_90a in {secs:.2f} s")
     for line in (logmel_cuda.BUILD_LOG or "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(s in line for s in ("registers", "spill", "error", "smem")):
             print(f"[build] {line.strip()}")
+    # dynamic shared memory is not in ptxas's report: the library's layout
+    # and the wrapper's copy of it must agree
+    sizes = logmel_cuda._launch_sizes(logmel_cuda.plan(cfg), cfg)
+    smem = lib.sedx_logmel_shared_bytes(*sizes)
+    if smem != logmel_cuda.shared_bytes(cfg):
+        raise AssertionError(f"shared memory per block: library {smem}, "
+                             f"wrapper {logmel_cuda.shared_bytes(cfg)}")
+    per_sm = [lib.sedx_logmel_blocks_per_sm(*sizes, b) for b in (4, 2)]
+    if min(per_sm) < 1:
+        raise AssertionError(f"blocks per SM (float, int16): {per_sm}")
+    print(f"[build] dynamic shared memory per block at the DCASE config: "
+          f"{smem} bytes ({logmel_cuda.FRAMES_PER_BLOCK} frames, "
+          f"{logmel_cuda.FRAMES_IN_FLIGHT * logmel_cuda.THREADS_PER_FRAME} "
+          f"threads; FFT radices {logmel_cuda.plan(cfg).factors}); blocks "
+          f"per SM (float, int16): {per_sm[0]}, {per_sm[1]}")
     return secs
 
 
@@ -146,6 +164,16 @@ def _bound(flops, nbytes):
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _shares(kernel_ms, wrapper_ms, bound_ms, library_ms):
+    """The kernel's share of its bound (``bound_ms / kernel_ms``) and its
+    time over the ``torch.stft`` yardstick's, from the profiler's kernel
+    time (the wrapper's CUDA-event time when the profiler saw none)."""
+    t, what = ((kernel_ms, "kernel alone") if kernel_ms is not None
+               else (wrapper_ms, "wrapper"))
+    return (f"{what} at {100 * bound_ms / t:.2f}% of the bound, "
+            f"{t / library_ms:.4f}x the yardstick's time")
 
 
 def phase_kernel(torch, sedt, card):
@@ -177,6 +205,21 @@ def phase_kernel(torch, sedt, card):
     lin_rel = float(((lin_g - lin_w).abs() / lin_w.abs().clamp(min=1e-10)).max())
     print(f"[kernel] vs plain version: max |Δ| {err_db:.3e} dB (limit 0.1), "
           f"max linear rel err {lin_rel:.3e} (limit 2e-3)")
+    # both float32 versions against one computed in float64 (torch.stft of
+    # the same samples, float64 window and mel bank): which rounds less
+    x64 = x.double()
+    spec = torch.stft(x64, cfg.window_size, cfg.hop_size,
+                      window=torch.from_numpy(dsp.hann_window(
+                          cfg.window_size, dtype=np.float64)).cuda(),
+                      center=True, pad_mode=cfg.pad_mode, return_complex=True)
+    mel64 = (spec.abs() ** 2).transpose(1, 2) @ torch.from_numpy(
+        dsp.mel_filterbank(cfg.sample_rate, cfg.window_size, cfg.mel_bins,
+                           cfg.fmin, cfg.fmax, dtype=np.float64)).cuda()
+    ref64 = 10.0 * torch.log10(mel64.clamp(min=cfg.log_amin))
+    print("[kernel] vs a float64 reference: max |Δ| kernel "
+          f"{float((got.double() - ref64).abs().max()):.3e} dB, plain float32 "
+          f"version {float((want.double() - ref64).abs().max()):.3e} dB")
+    del x64, spec, mel64, ref64
     if not err_db <= 0.1 or not lin_ok:
         raise AssertionError("kernel disagrees with the plain version")
 
@@ -196,6 +239,28 @@ def phase_kernel(torch, sedt, card):
         raise AssertionError(f"1 kHz tone peaks in mel bin {peak}, expected "
                              f"{int(np.argmax(mel_w[k1k]))}")
     print(f"[kernel] silence = -100.0 dB exactly; 1 kHz tone peaks in mel bin {peak}")
+    # an onset after silence: half a clip of zeros, then noise. The frames
+    # wholly inside the silence must be exactly the floor, and the rest
+    # within the bound of the plain version (each frame is its own FFT)
+    half = cfg.clip_samples // 2
+    onset = np.zeros((2, cfg.clip_samples), np.float32)
+    onset[:, half:] = 0.1 * rng.standard_normal((2, cfg.clip_samples - half))
+    onset = torch.from_numpy(onset).cuda()
+    got_on = logmel_cuda.logmel_cuda(onset, cfg)
+    want_on = stft.logmel(onset, cfg)
+    silent = (half - cfg.window_size // 2) // cfg.hop_size
+    err_on = float((got_on - want_on).abs().max())
+    lin_g, lin_w = (10.0 ** (got_on.double() / 10.0),
+                    10.0 ** (want_on.double() / 10.0))
+    if not (bool((got_on[:, :silent] == -100.0).all()) and err_on <= 0.1
+            and bool(((lin_g - lin_w).abs()
+                      <= 1e-10 + 2e-3 * lin_w.abs()).all())):
+        raise AssertionError(f"onset after silence: max |Δ| {err_on} dB, "
+                             f"silent frames in [{float(got_on[:, :silent].min())}"
+                             f", {float(got_on[:, :silent].max())}] dB")
+    print(f"[kernel] onset after silence: frames 0-{silent - 1} exactly -100.0 "
+          f"dB; max |Δ| vs plain {err_on:.3e} dB (limit 0.1), linear within "
+          "rtol 2e-3")
     for bad, what in ((x.double(), "float64"),
                       (torch.empty(cfg.clip_samples, 2, device="cuda").t(),
                        "non-contiguous")):
@@ -227,8 +292,6 @@ def phase_kernel(torch, sedt, card):
         torch, lambda: logmel_cuda.logmel_cuda(x, cfg), "logmel_kernel")
     flops, nbytes = logmel_cuda.flops_and_bytes(cfg, BATCH, cfg.clip_samples)
     bound_ms, bound_by = _bound(flops, nbytes)
-    gemm_flops = logmel_cuda.dft_gemm_flops(cfg, BATCH, cfg.clip_samples)
-    gemm_floor_ms = gemm_flops / PEAK_F32_FLOPS * 1e3
     print(f"[kernel] B={BATCH}: wrapper (pad + kernel) {ms:.4f} / {ms_2:.4f} ms, "
           f"kernel alone (profiler) "
           f"{'not measured' if kernel_ms is None else f'{kernel_ms:.4f} ms'}, "
@@ -236,9 +299,8 @@ def phase_kernel(torch, sedt, card):
           f"(max |Δ| {lib_err:.3e} dB); bound of the function {bound_ms:.4f} ms "
           f"by {bound_by} (FFT count {flops / 1e9:.4f} GFLOP at 67 TFLOP/s "
           f"f32 = {flops / PEAK_F32_FLOPS * 1e3:.4f} ms, {nbytes / 1e6:.3f} MB "
-          f"at 3.35 TB/s = {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms); floor of "
-          f"the DFT-as-GEMM algorithm at f32 FMA {gemm_floor_ms:.4f} ms "
-          f"({gemm_flops / 1e9:.3f} GFLOP) [{card}]")
+          f"at 3.35 TB/s = {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms); "
+          f"{_shares(kernel_ms, ms, bound_ms, library_ms)} [{card}]")
     return {"name": "logmel", "route": "cuda",
             "source": "sound_event_detection_dcase2017_task4_torch/ops/csrc/logmel.cu",
             "replaces": "sound_event_detection_dcase2017_task4_tpu/ops/"
@@ -609,7 +671,6 @@ def phase_bank_kernel(torch, sedt, card):
     flops, nbytes = logmel_cuda.flops_and_bytes(cfg, TRAIN_BATCH,
                                                 cfg.clip_samples, 2, rows)
     bound_ms, bound_by = _bound(flops, nbytes)
-    gemm = logmel_cuda.dft_gemm_flops(cfg, TRAIN_BATCH, cfg.clip_samples)
     print(f"[bank] B={TRAIN_BATCH}: kernel alone (profiler) "
           f"{'not measured' if kernel_ms is None else f'{kernel_ms:.4f} ms'}, "
           f"wrapper (index copy + kernel) {ms:.4f} / {ms_2:.4f} ms, plain "
@@ -617,9 +678,7 @@ def phase_bank_kernel(torch, sedt, card):
           f"ms (max |Δ| {lib_err:.3e} dB); bound of the function "
           f"{bound_ms:.4f} ms by {bound_by} ({flops / 1e9:.4f} GFLOP at 67 "
           f"TFLOP/s f32, {nbytes / 1e6:.3f} MB with int16 samples at 3.35 "
-          f"TB/s); floor of the DFT-as-GEMM algorithm at f32 FMA "
-          f"{gemm / PEAK_F32_FLOPS * 1e3:.4f} ms ({gemm / 1e9:.3f} GFLOP) "
-          f"[{card}]")
+          f"TB/s); {_shares(kernel_ms, ms, bound_ms, library_ms)} [{card}]")
     entry = {"name": "logmel_bank", "route": "cuda",
              "source": "sound_event_detection_dcase2017_task4_torch/ops/csrc/logmel.cu",
              "replaces": "sound_event_detection_dcase2017_task4_tpu/ops/"
@@ -821,7 +880,7 @@ def main() -> int:
     from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
 
     name, card = phase_device(torch)
-    phase_build(logmel_cuda)
+    phase_build(logmel_cuda, sedt.config.DEFAULT)
     kernel = phase_kernel(torch, sedt, card)
     phase_gru(torch, card)
     kernel["launches"] = phase_slice(torch, sedt, card)

@@ -4,12 +4,12 @@ One kernel body with two entry points replaces the two Pallas TPU kernels of
 ``sound_event_detection_dcase2017_task4_tpu/ops/pallas_logmel.py``:
 :func:`logmel_cuda` replaces ``logmel_pallas`` (a waveform batch) and
 :func:`logmel_cuda_bank` replaces ``logmel_pallas_bank`` (rows gathered by
-index from a staged corpus bank, int16 decoded in the kernel). Their
-DFT-as-GEMM algorithm is compute-bound (about 1.9 GFLOP per 10 s clip against
-1.3 MB of waveform); it keeps the frame matrix, the power spectrogram and,
-for a bank, the gathered and decoded batch out of device memory. See the
-note at the top of the source. The function itself needs far less:
-:func:`flops_and_bytes` counts an FFT's work.
+index from a staged corpus bank, int16 decoded in the kernel). The body is a
+mixed-radix FFT in shared memory: each frame's windowed samples packed into
+``win/2`` complex points, a Stockham FFT, the real split, the power of the
+bins the mel bank reads and sparse per-band mel sums, all out of device
+memory (see the note at the top of the source). :func:`plan` builds every
+table it reads; :func:`flops_and_bytes` counts the function's least work.
 
 ``ops.stft.make_logmel_fn`` and ``ops.stft.make_logmel_bank_fn`` are the
 frontends the port calls: a CPU tensor goes to the plain PyTorch version, a
@@ -24,6 +24,7 @@ The kernel is built at first use with ``nvcc`` into ``ops/_build/`` (listed in
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -40,18 +41,25 @@ from ..config import Config, DEFAULT
 from . import dsp
 from .stft import _geometry, check_bank, pad_center
 
-__all__ = ["BANK_LAUNCHES", "LAUNCHES", "build", "dft_gemm_flops",
-           "flops_and_bytes", "logmel_cuda", "logmel_cuda_bank", "plan"]
+__all__ = ["BANK_LAUNCHES", "LAUNCHES", "Plan", "build", "check_window",
+           "flops_and_bytes", "logmel_cuda", "logmel_cuda_bank", "plan",
+           "shared_bytes"]
 
 SOURCE = Path(__file__).parent / "csrc" / "logmel.cu"
 BUILD_DIR = Path(__file__).parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Tiles of csrc/logmel.cu that the host plan lays the basis out in (checked
-# against the library at load).
-BINS_PER_PASS = 64
-K_TILE = 32
+# Block shape of csrc/logmel.cu (checked against the library at load):
+# frames per block, threads per frame, frames in flight per block.
+FRAMES_PER_BLOCK = 16
+THREADS_PER_FRAME = 64
+FRAMES_IN_FLIGHT = 4
+# Radices with a written-out butterfly in the source; any other prime factor
+# of win/2 runs the generic stage on a DFT table from the plan.
+_POW2_RADICES = (8, 4, 2)
+# Shared memory a block may use on Hopper (227 KB).
+MAX_SHARED_BYTES = 232448
 
 #: Launches of the waveform entry since import; :func:`logmel_cuda` adds
 #: one per launch, nowhere else.
@@ -108,66 +116,195 @@ def build():
                     os.unlink(tmp)
         lib = ctypes.CDLL(str(so_path))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sedx_logmel_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                           ci, ci, cf, cf, vp]
+        sizes = [ci] * 9          # rows, frames, win, hop, stages, tw, used, w, mel
+        lib.sedx_logmel_launch.argtypes = [vp, vp, vp, vp, ci, *sizes, cf, cf, vp]
         lib.sedx_logmel_launch.restype = ci
         lib.sedx_logmel_bank_launch.argtypes = [vp, ci, vp, vp, vp, vp, ci,
-                                                ci, ci, ci, ci, ci, ci, cf,
-                                                cf, vp]
+                                                *sizes, cf, cf, vp]
         lib.sedx_logmel_bank_launch.restype = ci
+        lib.sedx_logmel_shared_bytes.argtypes = [ci] * 7
+        lib.sedx_logmel_shared_bytes.restype = ci
+        lib.sedx_logmel_blocks_per_sm.argtypes = [ci] * 8
+        lib.sedx_logmel_blocks_per_sm.restype = ci
         lib.sedx_cuda_error_string.argtypes = [ci]
         lib.sedx_cuda_error_string.restype = ctypes.c_char_p
-        for fn in ("sedx_logmel_bins_per_pass", "sedx_logmel_k_tile"):
+        consts = ("sedx_logmel_frames_per_block", "sedx_logmel_threads_per_frame",
+                  "sedx_logmel_frames_in_flight")
+        for fn in consts:
             getattr(lib, fn).argtypes = []
             getattr(lib, fn).restype = ci
-        got = (lib.sedx_logmel_bins_per_pass(), lib.sedx_logmel_k_tile())
-        if got != (BINS_PER_PASS, K_TILE):
-            raise RuntimeError(f"{so_path.name}: tile constants {got} do not "
+        got = tuple(getattr(lib, fn)() for fn in consts)
+        if got != (FRAMES_PER_BLOCK, THREADS_PER_FRAME, FRAMES_IN_FLIGHT):
+            raise RuntimeError(f"{so_path.name}: block constants {got} do not "
                                "match ops/logmel_cuda.py")
         _lib, BUILD_LOG = lib, log
         return lib
 
 
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
+def check_window(cfg: Config) -> None:
+    """Raise ``ValueError`` unless the kernel takes ``cfg``'s window: an even
+    size of at least 4 (the FFT packs sample pairs). For an odd window the
+    JAX package's two frontends disagree on the frame count (``ops/stft.py``
+    frames ``1 + (samples-1)//hop``, ``pallas_logmel.py`` ``1 +
+    samples//hop``), so no result could match both."""
+    win = cfg.window_size
+    if win % 2 or win < 4:
+        raise ValueError(
+            f"the CUDA log-mel kernel takes an even window of at least 4 "
+            f"samples (got window_size={win}); for an odd window the "
+            "reference frontends disagree on the frame count")
+
+
+def _factors(m: int) -> tuple[int, ...]:
+    """Radices of an ``m``-point FFT: 8s, then a 4 and a 2 (so that the
+    written-out stages come first, where every ``p`` is a power of two),
+    then the odd primes in increasing order."""
+    out = []
+    for r in _POW2_RADICES:
+        while m % r == 0:
+            out.append(r)
+            m //= r
+    p = 3
+    while m > 1:
+        while m % p == 0:
+            out.append(p)
+            m //= p
+        p += 2
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Plan:
+    """Host tables of the kernel for one config (float64 rounded to float32).
+
+    ``window [win]``: periodic Hann. ``factors``: radices of the
+    ``M = win/2``-point FFT, in stage order. ``stages [n, 4]`` int32: per
+    stage its radix ``R``, the product ``p`` of the radices before it, the
+    offset of its twiddles ``e^{-2πi·r·k/(pR)}`` (at ``(r-1)·p + k``, ``k < p``,
+    ``1 ≤ r < R``) in ``twiddle`` and, for a generic radix, the offset of its
+    DFT table ``e^{-2πi·j/R}`` (else -1). ``twiddle [n_tw, 2]`` (re, im).
+    ``split [n_used, 2]``: ``e^{-2πik/win}`` of the real split. ``bands [mel,
+    4]`` int32: each band's non-zero bins ``[lo, hi)`` and the offset of
+    their weights in ``band_w``. ``n_used``: the last non-zero mel row + 1.
+    """
+
+    window: np.ndarray
+    factors: tuple[int, ...]
+    stages: np.ndarray
+    twiddle: np.ndarray
+    split: np.ndarray
+    bands: np.ndarray
+    band_w: np.ndarray
+    n_used: int
 
 
 @functools.lru_cache(maxsize=8)
-def plan(cfg: Config):
-    """Host constants for the kernel: ``(basis, melw, n_used)``.
-
-    ``basis [n_pass, k_pad, 2*BINS_PER_PASS]``: pass ``p`` holds the
-    windowed cos columns of bins ``p*BN .. p*BN+BN-1`` then their sin
-    columns; rows past the window and bins past ``n_used`` are zero.
-    ``melw [n_pass*BN, mel]`` is the Slaney bank with the same zero rows.
-    Bins whose mel weights are all zero (above fmax) are trimmed, as the
-    TPU kernel's ``_plan`` trims them: 448 bins at the DCASE config.
-    """
-    win, bn = cfg.window_size, BINS_PER_PASS
+def plan(cfg: Config) -> Plan:
+    """The kernel's tables for ``cfg`` (see :class:`Plan`). Asserts that
+    each bin feeds at most two mel bands and that the compact band weights
+    rebuild ``dsp.mel_filterbank`` exactly. Bins whose mel weights are all
+    zero (above fmax) are dropped, as the TPU kernel's ``_plan`` drops them:
+    448 bins at the DCASE config."""
+    check_window(cfg)
+    win = cfg.window_size
+    m = win // 2
     mel = dsp.mel_filterbank(cfg.sample_rate, win, cfg.mel_bins, cfg.fmin,
                              cfg.fmax, dtype=np.float32)       # [n_freq, mel]
     nz = np.nonzero(mel.any(axis=1))[0]
     n_used = int(nz[-1]) + 1 if nz.size else mel.shape[0]
-    n_pass = -(-n_used // bn)
-    k_pad = _round_up(win, K_TILE)
-    cos_m, sin_m = dsp.dft_matrices(win, dtype=np.float32)     # [win, n_freq]
-    basis = np.zeros((n_pass, k_pad, 2 * bn), np.float32)
-    for p in range(n_pass):
-        lo, hi = p * bn, min((p + 1) * bn, n_used)
-        basis[p, :win, : hi - lo] = cos_m[:, lo:hi]
-        basis[p, :win, bn : bn + hi - lo] = sin_m[:, lo:hi]
-    melw = np.zeros((n_pass * bn, cfg.mel_bins), np.float32)
-    melw[:n_used] = mel[:n_used]
-    return basis, melw, n_used
+
+    factors = _factors(m)
+    stages, tw = [], []
+    p = 1
+    for r_ in factors:
+        tw_off = sum(len(t) for t in tw)
+        k = np.arange(p, dtype=np.float64)
+        r = np.arange(1, r_, dtype=np.float64)[:, None]
+        tw.append(np.exp(-2j * np.pi * r * k / (p * r_)).ravel())
+        dft_off = -1
+        if r_ not in _POW2_RADICES:
+            dft_off = tw_off + len(tw[-1])
+            tw.append(np.exp(-2j * np.pi * np.arange(r_) / r_))
+        stages.append((r_, p, tw_off, dft_off))
+        p *= r_
+    tw = np.concatenate(tw)
+    split = np.exp(-2j * np.pi * np.arange(n_used) / win)
+
+    bands = np.zeros((cfg.mel_bins, 4), np.int32)
+    weights = []
+    off = 0
+    for b in range(cfg.mel_bins):
+        rows = np.nonzero(mel[:n_used, b])[0]
+        lo, hi = (int(rows[0]), int(rows[-1]) + 1) if rows.size else (0, 0)
+        bands[b, :3] = lo, hi, off
+        weights.append(mel[lo:hi, b])
+        off += hi - lo
+    band_w = np.concatenate(weights).astype(np.float32)
+    dense = np.zeros_like(mel[:n_used])
+    for b, (lo, hi, o, _) in enumerate(bands):
+        dense[lo:hi, b] = band_w[o:o + hi - lo]
+    assert np.array_equal(dense, mel[:n_used]), "compact mel bands differ"
+    assert (np.count_nonzero(mel, axis=1) <= 2).all(), "a bin feeds > 2 bands"
+
+    def c2(z):
+        return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
+
+    pl = Plan(window=dsp.hann_window(win, dtype=np.float32),
+              factors=factors, stages=np.asarray(stages, np.int32),
+              twiddle=c2(tw), split=c2(split), bands=bands, band_w=band_w,
+              n_used=n_used)
+    for f in dataclasses.fields(pl):       # cached: every caller shares it
+        if isinstance(getattr(pl, f.name), np.ndarray):
+            getattr(pl, f.name).setflags(write=False)
+    return pl
+
+
+def _launch_sizes(pl: Plan, cfg: Config):
+    """The sizes the C entries take after the row length and frame count:
+    win, hop, n_stages, n_tw, n_used, n_w, mel."""
+    return (cfg.window_size, cfg.hop_size, len(pl.stages), len(pl.twiddle),
+            pl.n_used, len(pl.band_w), cfg.mel_bins)
+
+
+def shared_bytes(cfg: Config) -> int:
+    """Dynamic shared memory of one block at ``cfg``, in bytes: the layout
+    of ``make_layout`` in ``csrc/logmel.cu`` (the clip span, the flattened
+    plan, two padded FFT buffers per frame in flight, the power of every
+    frame, the mel sums)."""
+    win, hop, n_stages, n_tw, n_used, n_w, mel = _launch_sizes(plan(cfg), cfg)
+    m = win // 2
+
+    def r4(x):
+        return (x + 3) & ~3
+
+    buf_len = (m - 1 + ((m - 1) >> 4) + 2) & ~1
+    pow_stride = ((n_used + 31) & ~31) + 1
+    floats = (r4((FRAMES_PER_BLOCK - 1) * hop + win)
+              + r4(win + 2 * n_tw + 2 * n_used + n_w)
+              + 4 * (n_stages + mel)
+              + FRAMES_IN_FLIGHT * 4 * buf_len
+              + r4(FRAMES_PER_BLOCK * pow_stride)
+              + FRAMES_PER_BLOCK * mel)
+    return 4 * floats
 
 
 @functools.lru_cache(maxsize=8)
 def _device_plan(cfg: Config, device: torch.device, scale: float = 1.0):
-    """The plan's basis (times ``scale``, an int16 bank's power-of-two PCM
-    scale, folded in on the host: exact) and mel bank on ``device``."""
-    basis, melw, _ = plan(cfg)
-    return (torch.from_numpy(basis * np.float32(scale)).to(device),
-            torch.from_numpy(melw).to(device))
+    """The plan flattened as the kernel reads it, on ``device``:
+    ``plan_f = [window·scale | twiddle | split | band_w]`` float32 and
+    ``plan_i = [stages | bands]`` int32. ``scale`` is an int16 bank's PCM
+    scale, a power of two, folded into the window (exact)."""
+    pl = plan(cfg)
+    need = shared_bytes(cfg)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"window {cfg.window_size} / hop {cfg.hop_size} need "
+                         f"{need} bytes of shared memory a block (at most "
+                         f"{MAX_SHARED_BYTES})")
+    plan_f = np.concatenate([pl.window * np.float32(scale), pl.twiddle.ravel(),
+                             pl.split.ravel(), pl.band_w])
+    plan_i = np.concatenate([pl.stages.ravel(), pl.bands.ravel()])
+    return (torch.from_numpy(plan_f).to(device),
+            torch.from_numpy(plan_i.astype(np.int32)).to(device))
 
 
 def _ref_db(cfg: Config) -> float:
@@ -194,10 +331,11 @@ def logmel_cuda(waveform: torch.Tensor, cfg: Config = DEFAULT) -> torch.Tensor:
     Reflect-pads on the device as plain tensor code (as the TPU wrapper
     pads outside its ``pallas_call``), launches on the current stream and
     applies the per-clip ``top_db`` clamp outside the kernel. It computes
-    float32 for both of the frontend's precisions (see the note in
-    ``csrc/logmel.cu``).
+    float32 for both of the frontend's precisions. An odd window raises
+    (:func:`check_window`).
     """
     global LAUNCHES
+    check_window(cfg)
     if not isinstance(waveform, torch.Tensor) or waveform.device.type != "cuda":
         raise ValueError("logmel_cuda takes a CUDA tensor")
     if waveform.dtype != torch.float32:
@@ -215,7 +353,7 @@ def logmel_cuda(waveform: torch.Tensor, cfg: Config = DEFAULT) -> torch.Tensor:
     n_frames = 1 + samples // hop
     if bsz == 0:
         return waveform.new_empty((0, n_frames, cfg.mel_bins))
-    basis, melw = _device_plan(cfg, waveform.device)
+    plan_f, plan_i = _device_plan(cfg, waveform.device)
     lib = build()
     xpad = pad_center(waveform, pad, cfg.pad_mode).contiguous()
     out = torch.empty((bsz, n_frames, cfg.mel_bins), dtype=torch.float32,
@@ -223,9 +361,9 @@ def logmel_cuda(waveform: torch.Tensor, cfg: Config = DEFAULT) -> torch.Tensor:
     with torch.cuda.device(waveform.device):
         stream = torch.cuda.current_stream(waveform.device).cuda_stream
         rc = lib.sedx_logmel_launch(
-            xpad.data_ptr(), basis.data_ptr(), melw.data_ptr(), out.data_ptr(),
-            bsz, xpad.shape[1], n_frames, hop, basis.shape[1], basis.shape[0],
-            cfg.mel_bins, cfg.log_amin, _ref_db(cfg), stream)
+            xpad.data_ptr(), plan_f.data_ptr(), plan_i.data_ptr(),
+            out.data_ptr(), bsz, xpad.shape[1], n_frames,
+            *_launch_sizes(plan(cfg), cfg), cfg.log_amin, _ref_db(cfg), stream)
     _check_launch(lib, rc)
     LAUNCHES += 1
     return _top_db(out, cfg)
@@ -262,10 +400,11 @@ def logmel_cuda_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
     range-checked here and copied to the device as int32 (pinned,
     non-blocking). ``idx=None`` takes every row in order (staged rows given
     to ``stft.make_logmel_fn``). The int16 PCM scale is folded into the
-    basis, so an int16 launch equals the float launch on the decoded rows
-    bit for bit.
+    window table, so an int16 launch equals the float launch on the decoded
+    rows bit for bit. An odd window raises (:func:`check_window`).
     """
     global BANK_LAUNCHES
+    check_window(cfg)
     if not isinstance(bank, torch.Tensor) or bank.device.type != "cuda":
         raise ValueError("logmel_cuda_bank takes a CUDA bank")
     if bank.dtype not in (torch.float32, torch.int16):
@@ -280,7 +419,7 @@ def logmel_cuda_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
     if bsz == 0:
         return torch.empty((0, n_frames, cfg.mel_bins), device=bank.device)
     scale = 1.0 if bank.dtype == torch.float32 else float(wave_scale)
-    basis, melw = _device_plan(cfg, bank.device, scale)
+    plan_f, plan_i = _device_plan(cfg, bank.device, scale)
     lib = build()
     dev_index = None
     if index is not None:
@@ -293,10 +432,9 @@ def logmel_cuda_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
         rc = lib.sedx_logmel_bank_launch(
             bank.data_ptr(), bank.element_size(),
             None if dev_index is None else dev_index.data_ptr(),
-            basis.data_ptr(), melw.data_ptr(), out.data_ptr(), bsz,
-            bank.shape[1] * bank.shape[2], n_frames, cfg.hop_size,
-            basis.shape[1], basis.shape[0], cfg.mel_bins, cfg.log_amin,
-            _ref_db(cfg), stream)
+            plan_f.data_ptr(), plan_i.data_ptr(), out.data_ptr(), bsz,
+            bank.shape[1] * bank.shape[2], n_frames,
+            *_launch_sizes(plan(cfg), cfg), cfg.log_amin, _ref_db(cfg), stream)
     _check_launch(lib, rc)
     BANK_LAUNCHES += 1
     return _top_db(out, cfg)
@@ -317,24 +455,14 @@ def flops_and_bytes(cfg: Config, batch: int, samples: int,
     number of distinct rows the index names (each is read once), and the
     int32 index is read too.
     """
-    _, melw, n_used = plan(cfg)
-    win = cfg.window_size
+    pl = plan(cfg)
+    win, n_used = cfg.window_size, pl.n_used
     n_frames = 1 + samples // cfg.hop_size
     per_frame = (2 * win * np.log2(win) - 4 * win + 6 + win + 3 * n_used
-                 + 2 * np.count_nonzero(melw) + 3 * cfg.mel_bins)
+                 + 2 * np.count_nonzero(pl.band_w) + 3 * cfg.mel_bins)
     flops = int(batch * n_frames * per_frame)
     clips = batch if rows_read is None else rows_read
     nbytes = (itemsize * clips * samples
               + (0 if rows_read is None else 4 * batch)
               + 4 * (n_used * cfg.mel_bins + batch * n_frames * cfg.mel_bins))
     return flops, nbytes
-
-
-def dft_gemm_flops(cfg: Config, batch: int, samples: int) -> int:
-    """Operations of this kernel's algorithm, the DFT as a GEMM against the
-    trimmed ``[cos | sin]`` basis plus the dense mel projection: the floor
-    of that algorithm, not of the function (see :func:`flops_and_bytes`)."""
-    n_used = plan(cfg)[2]
-    n_frames = 1 + samples // cfg.hop_size
-    return 2 * batch * n_frames * (cfg.window_size * 2 * n_used
-                                   + n_used * cfg.mel_bins)

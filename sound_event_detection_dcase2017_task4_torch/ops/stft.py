@@ -150,8 +150,8 @@ def check_bank(bank: torch.Tensor, cfg: Config, wave_scale) -> None:
     """Raise unless ``bank`` is a staged corpus bank the bank frontend can
     decode: ``[N, n_rows, hop]`` rows of ``cfg.clip_samples`` clips, float
     or integer; an integer bank needs ``wave_scale``, a power of two, so
-    that it folds into the kernel's basis exactly (the JAX package's rules,
-    ``pallas_logmel.py:327-340``)."""
+    that it folds into the kernel's window table exactly (the JAX
+    package's rules, ``pallas_logmel.py:327-340``)."""
     *_, n_rows = _geometry(cfg, cfg.clip_samples)
     if bank.ndim != 3 or tuple(bank.shape[1:]) != (n_rows, cfg.hop_size):
         raise ValueError(
@@ -164,7 +164,7 @@ def check_bank(bank: torch.Tensor, cfg: Config, wave_scale) -> None:
         if math.frexp(wave_scale)[0] != 0.5:
             raise ValueError(
                 f"wave_scale must be a power of two to fold into the "
-                f"basis exactly (got {wave_scale})")
+                f"kernel's window exactly (got {wave_scale})")
 
 
 def logmel_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
@@ -192,8 +192,9 @@ def make_logmel_fn(cfg: Config = DEFAULT, precision: str = "highest"):
     as they are (``logmel_cuda.logmel_cuda_bank`` without an index), the
     plain version un-stages them first.
 
-    ``precision="fast"`` is accepted for the reference's signature and
-    computes float32 like ``"highest"`` in this port (no TF32/bf16 path yet).
+    ``precision="fast"`` is accepted for the reference's signature. Both
+    precisions compute the kernel's float32 FFT, whose rounding is below
+    that of a single bf16 GEMM pass (the TPU's "fast").
     """
     if precision not in ("highest", "fast"):
         raise ValueError(f"unknown precision {precision!r}")

@@ -31,19 +31,23 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("kw", [
-    {},
-    dict(clip_samples=16000, window_size=640, hop_size=200, mel_bins=32,
-         fmax=15000),
-    dict(clip_samples=16000, window_size=2048, hop_size=640, mel_bins=128,
-         fmax=15000),
-    dict(clip_samples=16123, window_size=500, hop_size=130, mel_bins=40,
-         log_top_db=15.0),
+@pytest.mark.parametrize("kw,onset", [
+    ({}, False),
+    ({}, True),                # zeros, then noise: an onset after silence
+    (dict(clip_samples=16000, window_size=640, hop_size=200, mel_bins=32,
+          fmax=15000), False),
+    (dict(clip_samples=16000, window_size=2048, hop_size=640, mel_bins=128,
+          fmax=15000), False),
+    (dict(clip_samples=16123, window_size=500, hop_size=130, mel_bins=40,
+          log_top_db=15.0), False),
+    (dict(clip_samples=16000, window_size=1018), False),   # generic radix 509
 ])
-def test_kernel_matches_plain(cuda, kw):
+def test_kernel_matches_plain(cuda, kw, onset):
     cfg = config.Config(**kw)
-    x = torch.from_numpy((np.random.RandomState(0).randn(3, cfg.clip_samples)
-                          * 0.2).astype(np.float32)).to(cuda)
+    x = np.random.RandomState(0).randn(3, cfg.clip_samples) * 0.2
+    if onset:
+        x[:, : cfg.clip_samples // 2] = 0.0
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
     before = logmel_cuda.LAUNCHES
     got = stft.make_logmel_fn(cfg)(x)
     want = stft.logmel(x, cfg)
@@ -53,6 +57,9 @@ def test_kernel_matches_plain(cuda, kw):
     torch.testing.assert_close(got, want, atol=0.1, rtol=0)
     lin_g, lin_w = 10.0 ** (got.double() / 10), 10.0 ** (want.double() / 10)
     torch.testing.assert_close(lin_g, lin_w, atol=1e-10, rtol=2e-3)
+    if onset:   # frames wholly inside the silence are exactly the floor
+        silent = (cfg.clip_samples // 2 - cfg.window_size // 2) // cfg.hop_size
+        assert silent > 0 and bool((got[:, :silent] == -100.0).all())
 
 
 def test_kernel_rejects_bad_inputs(cuda):

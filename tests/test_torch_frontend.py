@@ -22,7 +22,7 @@ from sound_event_detection_dcase2017_task4_tpu.ops import pallas_logmel as jpl
 from sound_event_detection_dcase2017_task4_tpu.ops import stft as jstft
 from sound_event_detection_dcase2017_task4_tpu.ops.pallas_logmel import logmel_pallas
 from sound_event_detection_dcase2017_task4_torch import config
-from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+from sound_event_detection_dcase2017_task4_torch.ops import dsp, logmel_cuda, stft
 
 torch.set_num_threads(2)
 
@@ -45,27 +45,55 @@ def _port(x, cfg):
 
 
 def _kernel_formula(x, cfg):
-    """The kernel's arithmetic on the CPU from ``logmel_cuda.plan``: per pass
-    of BINS_PER_PASS bins, frames @ [cos | sin] → power → partial mel sums;
-    then log10. Checks the host constants the CUDA kernel is fed."""
-    basis, melw, _ = logmel_cuda.plan(cfg)
-    bn = logmel_cuda.BINS_PER_PASS
-    pad = cfg.window_size // 2
-    xp = np.pad(x.astype(np.float64), ((0, 0), (pad, pad)), mode=cfg.pad_mode)
-    n_frames = 1 + x.shape[1] // cfg.hop_size
-    k_pad = basis.shape[1]
-    xp = np.pad(xp, ((0, 0), (0, k_pad)))
-    idx = (np.arange(n_frames)[:, None] * cfg.hop_size
-           + np.arange(k_pad)[None, :])
-    frames = xp[:, idx]                                   # [B, T, k_pad]
-    mel = 0.0
-    for p in range(basis.shape[0]):
-        re = frames @ basis[p, :, :bn]
-        im = frames @ basis[p, :, bn:]
-        mel = mel + (re * re + im * im) @ melw[p * bn:(p + 1) * bn]
+    """The kernel's arithmetic on the CPU in float32, from
+    ``logmel_cuda.plan``'s own tables: the windowed frame's even/odd samples
+    packed into M = win/2 complex points, the Stockham stages in the plan's
+    factor order (point ``i + r·M/R`` times twiddle ``(r-1)·p + k`` into
+    butterfly ``i``, outputs to ``(i-k)·R + k + q·p``), the real split with
+    the plan's ``e^{-2πik/win}``, power, the sparse per-band mel sums, then
+    log10 in double. Checks the host tables the CUDA kernel is fed and the
+    index arithmetic it runs."""
+    pl = logmel_cuda.plan(cfg)
+    win, hop, m = cfg.window_size, cfg.hop_size, cfg.window_size // 2
+    pad = win // 2
+    xp = np.pad(x.astype(np.float32), ((0, 0), (pad, pad)), mode=cfg.pad_mode)
+    n_frames = 1 + x.shape[1] // hop
+    idx = np.arange(n_frames)[:, None] * hop + np.arange(win)[None, :]
+    y = xp[:, idx] * pl.window                            # [B, T, win] f32
+    z = (y[..., 0::2] + np.complex64(1j) * y[..., 1::2]).astype(np.complex64)
+    tw = (pl.twiddle[:, 0] + 1j * pl.twiddle[:, 1]).astype(np.complex64)
+    p = 1
+    for radix, p_stage, tw_off, dft_off in pl.stages:
+        assert p_stage == p
+        nb = m // radix
+        i = np.arange(nb)
+        k = i % p
+        r = np.arange(radix)[:, None]
+        u = z[..., i[None, :] + r * nb]                   # [B, T, R, nb]
+        u[..., 1:, :] *= tw[tw_off + (r[1:] - 1) * p + k[None, :]]
+        if dft_off >= 0:                                  # generic radix
+            dtab = tw[dft_off:dft_off + radix]
+        else:                                             # written out
+            dtab = np.exp(-2j * np.pi * np.arange(radix) / radix).astype(
+                np.complex64)
+        dmat = dtab[(r * r.T) % radix]                    # [q, r]
+        out = np.empty_like(z)
+        out[..., ((i - k) * radix + k)[None, :] + r * p] = np.einsum(
+            "qr,...rn->...qn", dmat, u)
+        z, p = out, p * radix
+    assert p == m
+    kk = np.arange(pl.n_used)
+    a, c = z[..., kk % m], np.conj(z[..., (m - kk) % m])
+    split = (pl.split[:, 0] + 1j * pl.split[:, 1]).astype(np.complex64)
+    spec = np.float32(0.5) * (a + c) + split * (
+        np.complex64(-0.5j) * (a - c))
+    power = (spec.real * spec.real + spec.imag * spec.imag).astype(np.float32)
+    mel = np.zeros(power.shape[:-1] + (cfg.mel_bins,), np.float32)
+    for b, (lo, hi, off, _) in enumerate(pl.bands):
+        mel[..., b] = power[..., lo:hi] @ pl.band_w[off:off + hi - lo]
     ref_db = 10.0 * np.log10(max(cfg.log_amin, cfg.log_ref))
-    return (10.0 * np.log10(np.maximum(cfg.log_amin, mel)) - ref_db
-            ).astype(np.float32)
+    return (10.0 * np.log10(np.maximum(cfg.log_amin, mel.astype(np.float64)))
+            - ref_db).astype(np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -108,7 +136,7 @@ def test_fmax_nyquist_matches_jax(wave):
     """fmax = Nyquist: 513 bins, the top one has zero mel weight, so the
     kernel's plan uses 512."""
     cfg, jcfg = _both_cfgs(clip_samples=16000, fmax=16000)
-    assert logmel_cuda.plan(cfg)[2] == 512
+    assert logmel_cuda.plan(cfg).n_used == 512
     x = wave[:, :16000]
     out = _port(x, cfg)
     _assert_db_close(out, np.asarray(logmel_pallas(x, jcfg, interpret=True)))
@@ -126,21 +154,85 @@ def test_top_db_matches_jax(wave):
 
 
 def test_kernel_plan_dcase():
-    """The kernel's constants at the DCASE config: 448 bins (the last
-    non-zero mel weight is bin 447) in 7 passes of 64, K = 1024."""
-    basis, melw, n_used = logmel_cuda.plan(config.DEFAULT)
-    assert n_used == 448
-    assert basis.shape == (7, 1024, 2 * logmel_cuda.BINS_PER_PASS)
-    assert melw.shape == (448, 64)
-    gemm = logmel_cuda.dft_gemm_flops(config.DEFAULT, 16, 320000)
-    assert gemm == 2 * 16 * 1001 * (1024 * 896 + 448 * 64)
-    assert abs(gemm / 1e9 - 30.3) < 0.1
-    # the function's least work: an FFT per frame, so far fewer operations
-    # than the GEMM algorithm, and bound by bytes at the H100's peaks
-    flops, nbytes = logmel_cuda.flops_and_bytes(config.DEFAULT, 16, 320000)
+    """The kernel's tables at the DCASE config: 448 bins (the last non-zero
+    mel weight is bin 447), a 512-point FFT in three radix-8 stages, each
+    bin in at most two bands, and compact band weights equal to
+    ``mel_filterbank``."""
+    cfg = config.DEFAULT
+    pl = logmel_cuda.plan(cfg)
+    assert pl.n_used == 448
+    assert pl.factors == (8, 8, 8)
+    np.testing.assert_array_equal(pl.stages[:, :2], [[8, 1], [8, 8], [8, 64]])
+    assert (pl.stages[:, 3] == -1).all()              # no generic stage
+    assert pl.twiddle.shape == (7 * (1 + 8 + 64), 2)
+    np.testing.assert_array_equal(pl.window, dsp.hann_window(1024))
+    assert pl.split.shape == (448, 2)
+    np.testing.assert_allclose(pl.split[1], [np.cos(2 * np.pi / 1024),
+                                             -np.sin(2 * np.pi / 1024)])
+    mel = dsp.mel_filterbank(cfg.sample_rate, 1024, 64, cfg.fmin, cfg.fmax)
+    dense = np.zeros((448, 64), np.float32)
+    feeds = np.zeros(448, int)
+    for b, (lo, hi, off, _) in enumerate(pl.bands):
+        assert 0 <= lo < hi <= 448
+        dense[lo:hi, b] = pl.band_w[off:off + hi - lo]
+        feeds[lo:hi] += 1
+    assert feeds.max() == 2
+    np.testing.assert_array_equal(dense, mel[:448])
+    assert not mel[448:].any()
+    assert len(pl.band_w) == np.count_nonzero(mel)
+    # one block: 16 frames of a clip in ≈ 107 KB, so two fit on an SM
+    smem = logmel_cuda.shared_bytes(cfg)
+    assert 100_000 < smem <= (228 * 1024) // 2 - 1024
+    # the function's least work: an FFT per frame, bound by bytes at the
+    # H100's peaks for 16 float waveforms
+    flops, nbytes = logmel_cuda.flops_and_bytes(cfg, 16, 320000)
     assert 0.3e9 < flops < 0.4e9
     assert nbytes == 4 * (16 * 320000 + 448 * 64 + 16 * 1001 * 64)
     assert nbytes / 3.35e12 > flops / 67e12
+
+
+@pytest.mark.parametrize("win,factors", [(1024, (8, 8, 8)),
+                                         (2048, (8, 8, 8, 2)),
+                                         (640, (8, 8, 5)),
+                                         (500, (2, 5, 5, 5)),
+                                         (1152, (8, 8, 3, 3)),
+                                         (1018, (509,))])
+def test_kernel_plan_factors(win, factors):
+    """Radix 8 first, then 4 and 2, then odd primes (509 is a generic
+    radix-509 stage); the stage twiddles are e^{-2πi·r·k/(pR)} and a
+    generic stage carries its DFT table."""
+    pl = logmel_cuda.plan(config.Config(window_size=win, clip_samples=16000))
+    assert pl.factors == factors and int(np.prod(factors)) == win // 2
+    tw = pl.twiddle[:, 0] + 1j * pl.twiddle[:, 1]
+    p = 1
+    for radix, p_stage, tw_off, dft_off in pl.stages:
+        assert p_stage == p
+        k, r = np.arange(p), np.arange(1, radix)[:, None]
+        np.testing.assert_allclose(
+            tw[tw_off:tw_off + (radix - 1) * p],
+            np.exp(-2j * np.pi * r * k / (p * radix)).ravel(), atol=1e-7)
+        assert (dft_off >= 0) == (radix not in (2, 4, 8))
+        if dft_off >= 0:
+            np.testing.assert_allclose(
+                tw[dft_off:dft_off + radix],
+                np.exp(-2j * np.pi * np.arange(radix) / radix), atol=1e-7)
+        p *= radix
+
+
+@pytest.mark.parametrize("win", [1023, 501])
+def test_odd_window_raises_in_the_kernel_wrappers(win):
+    """An odd window raises ``ValueError`` in both CUDA wrappers' host
+    checks, before any device is needed (the JAX package's two frontends
+    disagree on its frame count); the plain version still serves it."""
+    cfg = config.Config(clip_samples=16000, window_size=win)
+    x = torch.zeros(1, 16000)
+    with pytest.raises(ValueError, match="even window"):
+        logmel_cuda.logmel_cuda(x, cfg)
+    with pytest.raises(ValueError, match="even window"):
+        logmel_cuda.logmel_cuda_bank(torch.zeros(1, 4, 320), [0], cfg)
+    with pytest.raises(ValueError, match="even window"):
+        logmel_cuda.plan(cfg)
+    assert stft.make_logmel_fn(cfg)(x).shape[-1] == cfg.mel_bins
 
 
 @pytest.mark.parametrize("kw", [
@@ -151,11 +243,15 @@ def test_kernel_plan_dcase():
          fmax=15000),
     dict(clip_samples=16000, fmax=16000),
     dict(clip_samples=16123, window_size=500, hop_size=130, mel_bins=40),
+    dict(clip_samples=16000, window_size=1018),          # M = 509: generic
+    dict(clip_samples=16257, window_size=1152, hop_size=128,
+         fmax=15000),                                    # M = 576: radix 3
 ])
 def test_kernel_formula_matches_plain(wave, kw):
-    """The trimmed, pass-split basis and mel bank the CUDA kernel reads give
-    the plain version's log-mel (clip lengths that are not a multiple of
-    hop, windows that are not a multiple of the K tile included)."""
+    """The FFT plan the CUDA kernel reads, run through its arithmetic in
+    float32, gives the plain version's log-mel (clip lengths that are not
+    a multiple of hop, radix-5, radix-3 and prime generic stages, and an
+    odd hop included)."""
     cfg = config.Config(**kw)
     rng = np.random.RandomState(3)
     x = (rng.randn(2, cfg.clip_samples) * 0.2).astype(np.float32)

@@ -81,10 +81,14 @@ def test_kernel_source_ships_with_the_package():
     assert logmel_cuda.SOURCE.is_file()
     assert logmel_cuda.SOURCE.parent == PORT / "ops" / "csrc"
     src = logmel_cuda.SOURCE.read_text()
-    # the tile constants the wrapper assumes are the source's
-    for name, value in (("BN", logmel_cuda.BINS_PER_PASS),
-                        ("KT", logmel_cuda.K_TILE)):
+    # the block constants the wrapper assumes are the source's
+    for name, value in (("TF", logmel_cuda.FRAMES_PER_BLOCK),
+                        ("G", logmel_cuda.THREADS_PER_FRAME),
+                        ("FI", logmel_cuda.FRAMES_IN_FLIGHT)):
         assert f"constexpr int {name} = {value};" in src
+    # twiddles come only from the host plan
+    assert "__sinf" not in src and "__cosf" not in src
+    assert "fast_math" not in " ".join(logmel_cuda.NVCC_FLAGS)
     assert "sm_90a" in " ".join(logmel_cuda.NVCC_FLAGS)
     assert "pallas_logmel.py:logmel_pallas" in src
     assert "pallas_logmel.py:logmel_pallas_bank" in src
