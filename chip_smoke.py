@@ -47,9 +47,28 @@ random weights, in phases that each raise on failure:
    frontend must not run (the guard is first shown to see a CPU call), the
    loss must be finite and fall; an f32 step on 2 clips is held against the
    CPU, and the bf16 first step against the f32 one; p50 step time, clips/s,
-   peak memory and one step's device time by kernel are printed.
+   peak memory and one step's device time by kernel are printed;
+8. the CLI on the card, in a temporary workspace: ``features.main
+   pack_synthetic`` (128/32/32 clips of 10 s; the waveform kernel, its
+   features of 8 clips held to the plain version, the int16 waveforms read
+   back bit for bit); ``main.main train`` of the flagship in bf16 at batch
+   32 over the device cache for 20 steps with evals at 0, 10 and 20 (bank
+   kernel launches = steps + bank eval steps, counted from zero; the plain
+   frontends never run; checkpoints, sidecars and the statistics schema);
+   a resume from iteration 10 in a copy of the workspace (the restored state
+   equals the checkpoint, the next batch equals the uninterrupted run's);
+   one f32 step from that checkpoint through the bank (B1) and host-fed
+   int16 batches (B2), losses within rtol 1e-5; ``inference`` on testing and
+   evaluation, ``optimize_at_thresholds``, ``optimize_sed_thresholds`` and
+   ``calculate_metrics`` with a metrics JSON; ``sed_fast``'s device scorer
+   against the numpy oracle's integer counts for 20 parameter sets; and
+   ``Predictor.from_workspace(iteration="best")`` on a 16-clip request
+   against the same checkpoint served on the CPU (1e-4). Stage wall times,
+   train clips/s, eval and checkpoint times, peak memory and the launches
+   of both kernels are printed.
 
-It prints the ``kernels`` JSON line, then as its last line
+It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
+``launches_cli`` of phase 8), then as its last line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 when no CUDA device is available or any phase fails. It imports nothing of
 the JAX package.
@@ -59,8 +78,12 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import pickle
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -868,6 +891,452 @@ def phase_train(torch, sedt, card, bank, targets, scale):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the CLI
+# ---------------------------------------------------------------------------
+CLI_TRAIN, CLI_TEST, CLI_EVAL = 128, 32, 32
+CLI_BATCH = 32
+CLI_STEPS, CLI_EVAL_INTERVAL, CLI_EVAL_MAX = 20, 10, 2
+CLI_RUN = ("loss_type=clip_bce", "augmentation=mixup", f"batch_size={CLI_BATCH}")
+CLI_ARGS = [f"--model_type={MODEL}", "--feature_source=waveform",
+            "--augmentation=mixup", f"--batch_size={CLI_BATCH}"]
+
+
+def _db_bound_ok(got, want):
+    """0.1 dB absolute and rtol 2e-3 in the linear domain."""
+    err = float((got - want).abs().max())
+    lin_g, lin_w = 10.0 ** (got.double() / 10.0), 10.0 ** (want.double() / 10.0)
+    lin_ok = bool(((lin_g - lin_w).abs() <= 1e-10 + 2e-3 * lin_w.abs()).all())
+    return err, err <= 0.1 and lin_ok
+
+
+def _tensors_equal(a, b, path="state"):
+    """Raise unless the nested dicts/lists of tensors and values are equal."""
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{path}: keys {sorted(a)} vs {sorted(b)}")
+        for k in a:
+            _tensors_equal(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{path}: lengths {len(a)} vs {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _tensors_equal(x, y, f"{path}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"{path}: tensors differ")
+    elif a != b:
+        raise AssertionError(f"{path}: {a!r} vs {b!r}")
+
+
+def _full_size_search(torch, cfg, labels, card, n_clips=488):
+    """``optimize_sed_thresholds``'s search at the real testing split's
+    size (488 clips × 1001 frames × 17 classes: over the CLI's 2M-element
+    rule, so the CLI sends it to the device scorer) on seeded random
+    predictions and events; the optimum's score re-checked by the numpy
+    oracle."""
+    from sound_event_detection_dcase2017_task4_torch import (autoth, scoring,
+                                                             sed, sed_fast)
+
+    rng = np.random.default_rng(12)
+    fw = rng.random((n_clips, cfg.frames_num, len(labels)), np.float32) ** 3
+    names = [f"clip_{i:05d}.wav" for i in range(n_clips)]
+    gt = {}
+    for name in names:
+        events = []
+        for _ in range(int(rng.integers(0, 4))):
+            on = float(rng.uniform(0.0, 9.0))
+            events.append((on, min(10.0, on + float(rng.uniform(0.3, 4.0))),
+                           labels[int(rng.integers(len(labels)))]))
+        gt[name] = events
+    t0 = time.perf_counter()
+    scorer = sed_fast.DeviceSegmentScorer(fw, names, gt, labels, 100)
+    t_stage = time.perf_counter() - t0
+    calls = [0]
+
+    def counts_fn(*a):
+        calls[0] += 1
+        return scorer.per_class_counts(*a)
+
+    t0 = time.perf_counter()
+    best, params = autoth.optimize_sed_params(scorer.score_params, len(labels),
+                                              counts_fn=counts_fn)
+    t_search = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    events = sed.frame_prediction_to_event_prediction(fw, params, 100, labels)
+    oracle = scoring.segment_based_metrics(
+        gt, {names[i]: events[i] for i in range(n_clips)}, 10.0, 1.0,
+        labels)["overall"]["f_measure"]["f_measure"]
+    t_oracle = time.perf_counter() - t0
+    if oracle != best:
+        raise AssertionError(f"full-size search: device {best} vs numpy {oracle}")
+    print(f"[cli] SED threshold search at {n_clips}×{cfg.frames_num}×"
+          f"{len(labels)} (the CLI's device path): staging {t_stage:.3f} s, "
+          f"search {t_search:.3f} s over {calls[0]} device count calls "
+          f"({1e3 * t_search / calls[0]:.3f} ms each), segment F1 {best:.6f} "
+          f"== the numpy oracle's re-score ({t_oracle:.3f} s for one numpy "
+          f"score) [{card}]")
+
+
+def _bare_step_ms(torch, cli, ws, steps=20, warmup=3):
+    """p50 of the train step that ``main train`` builds (the flagship in
+    bf16 over the device cache at the CLI's batch), called in a plain loop
+    on the generator's index batches, by CUDA events."""
+    import argparse
+
+    args = argparse.Namespace(
+        workspace=ws, device=torch.device("cuda"), model_type=MODEL,
+        loss_type="clip_bce", augmentation="mixup", batch_size=CLI_BATCH,
+        learning_rate=None, warmup_steps=None, grad_clip=None, seed=1234,
+        mini_data=0, holdout_fold=None, feature_source="waveform",
+        no_pallas=False, dtype="bf16", remat=False, lazy_data=False,
+        device_cache="on", check_numerics=False)
+    ctx = cli._build(args, for_train=True)
+    if not ctx["use_bank"]:
+        raise AssertionError("the bare loop did not stage the device cache")
+    stream = ctx["gen"].generate_train(yield_indices=True)
+    batches = [next(stream) for _ in range(steps + warmup)]
+    for idx, y in batches[:warmup]:
+        ctx["step"](idx, y)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    marks[0].record()
+    for i, (idx, y) in enumerate(batches[warmup:]):
+        ctx["step"](idx, y)
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    return float(np.median([marks[i].elapsed_time(marks[i + 1])
+                            for i in range(steps)]))
+
+
+def phase_cli(torch, sedt, card):
+    """Phase 8 (see the module docstring). Returns the bank and waveform
+    kernel launches of the phase."""
+    from sound_event_detection_dcase2017_task4_torch import (
+        checkpoints, features, main as cli, scoring, sed, sed_fast, serving,
+        train)
+    from sound_event_detection_dcase2017_task4_torch.config import labels
+    from sound_event_detection_dcase2017_task4_torch.data import h5
+    from sound_event_detection_dcase2017_task4_torch.data.hdf5 import (
+        _quantize_int16, read_split)
+    from sound_event_detection_dcase2017_task4_torch.data.synth import (
+        make_synthetic_dataset)
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+
+    cfg = sedt.config.DEFAULT
+    root = tempfile.mkdtemp(prefix="sedx_cli_")
+    ws = os.path.join(root, "ws")
+    walls = {}
+    launches = {"logmel": 0, "logmel_bank": 0}
+
+    def counted(stage):
+        """Zero the kernel counters before ``stage`` and add them after."""
+        class _Stage:
+            def __enter__(self):
+                logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                torch.cuda.synchronize()
+                walls[stage] = time.perf_counter() - self.t0
+                self.b2, self.b1 = logmel_cuda.LAUNCHES, logmel_cuda.BANK_LAUNCHES
+                launches["logmel"] += self.b2
+                launches["logmel_bank"] += self.b1
+                return False
+        return _Stage()
+
+    # the plain frontends must not run on the card: count their calls (the
+    # guard is first shown to see a CPU call of each)
+    plain = {k: getattr(stft, k) for k in ("logmel", "logmel_bank")}
+    calls = {k: 0 for k in plain}
+
+    def counting(name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return plain[name](*a, **k)
+        return fn
+
+    # record every train step's batch index (the resume check) and the
+    # state right after a checkpoint is loaded
+    seen = {"idx": [], "loaded": None}
+    make_train_step, load_checkpoint = train.make_train_step, checkpoints.load_checkpoint
+
+    def recording_make_train_step(*a, **k):
+        step = make_train_step(*a, **k)
+
+        def rec(x, y):
+            seen["idx"].append(torch.as_tensor(x).numpy().copy())
+            return step(x, y)
+        return rec
+
+    def recording_load(path, state, opt_config=None):
+        out = load_checkpoint(path, state, opt_config)
+        seen["loaded"] = checkpoints.state_dict(state)
+        return out
+
+    for k in plain:
+        setattr(stft, k, counting(k))
+    train.make_train_step = recording_make_train_step
+    checkpoints.load_checkpoint = recording_load
+    try:
+        n_rows = stft._geometry(cfg, cfg.clip_samples)[-1]
+        stft.make_logmel_fn(cfg)(torch.zeros(1, cfg.clip_samples))
+        stft.make_logmel_bank_fn(cfg, wave_scale=2.0 ** -15)(
+            torch.zeros((1, n_rows, cfg.hop_size), dtype=torch.int16), [0])
+        if not min(calls.values()) >= 1:      # the plain bank calls logmel too
+            raise AssertionError(f"the plain-frontend guard missed a CPU call: {calls}")
+        calls.update(logmel=0, logmel_bank=0)
+
+        # 1. pack the corpus on the card
+        with counted("pack_synthetic") as st:
+            features.main(["pack_synthetic", f"--workspace={ws}",
+                           f"--num_train={CLI_TRAIN}", f"--num_test={CLI_TEST}",
+                           f"--num_eval={CLI_EVAL}", "--metadata_only"])
+        packs = (-(-CLI_TRAIN // 32) + -(-CLI_TEST // 32) + -(-CLI_EVAL // 32))
+        if st.b2 != packs or st.b1:
+            raise AssertionError(f"pack_synthetic launched {st.b2} waveform / "
+                                 f"{st.b1} bank kernels, expected {packs} / 0")
+        train_h5 = os.path.join(ws, "features", "training.h5")
+        packed = h5.open(train_h5)
+        clips = make_synthetic_dataset(8, cfg, seed=0)
+        wave8 = np.stack([c.waveform for c in clips])
+        with torch.no_grad():
+            want = plain["logmel"](torch.from_numpy(wave8).cuda(), cfg)
+        got = torch.from_numpy(np.array(packed["feature"][:8])).cuda()
+        err_pack, ok = _db_bound_ok(got, want)
+        if not ok:
+            raise AssertionError(f"packed features vs plain: max |Δ| {err_pack} dB")
+        stored = np.array(packed["waveform"][:8])
+        if not np.array_equal(stored, _quantize_int16(wave8)):
+            raise AssertionError("stored int16 waveforms differ from the clips")
+        reader = read_split(train_h5, load_waveform=True)
+        if reader.waveform.raw.dtype != np.int16 or not np.array_equal(
+                reader.waveform.raw[:8], stored):
+            raise AssertionError("the port's reader does not give the int16 back")
+        print(f"[cli] pack_synthetic {CLI_TRAIN}/{CLI_TEST}/{CLI_EVAL} × 10 s in "
+              f"{walls['pack_synthetic']:.3f} s: {st.b2} waveform kernel launches; "
+              f"8 clips' features vs plain max |Δ| {err_pack:.3e} dB (limit 0.1, "
+              "linear within rtol 2e-3); int16 waveforms read back bit for bit")
+
+        # 2. train the flagship over the device cache
+        torch.cuda.reset_peak_memory_stats()
+        with counted("train") as st:
+            run = cli.main(["train", f"--workspace={ws}", *CLI_ARGS,
+                            "--dtype=bf16", "--device_cache=on",
+                            f"--stop_iteration={CLI_STEPS}",
+                            f"--eval_interval={CLI_EVAL_INTERVAL}",
+                            f"--eval_max_iteration={CLI_EVAL_MAX}"])
+        peak = torch.cuda.max_memory_allocated()
+        n_evals = CLI_STEPS // CLI_EVAL_INTERVAL + 1
+        per_eval = min(CLI_EVAL_MAX, -(-CLI_TRAIN // CLI_BATCH)) + min(
+            CLI_EVAL_MAX, -(-CLI_TEST // CLI_BATCH))
+        want_b1 = CLI_STEPS + n_evals * per_eval
+        if st.b1 != want_b1 or st.b2:
+            raise AssertionError(f"train launched {st.b1} bank / {st.b2} waveform "
+                                 f"kernels, expected {want_b1} / 0")
+        if any(calls.values()):
+            raise AssertionError(f"plain frontend ran on the card: {calls}")
+        if run["loss"] is None or not np.isfinite(run["loss"]):
+            raise AssertionError(f"train loss {run['loss']}")
+        first_idx = list(seen["idx"])
+        ckpt_dir = os.path.join(ws, "checkpoints", "main", f"model_type={MODEL}",
+                                *CLI_RUN)
+        for it in (CLI_EVAL_INTERVAL, CLI_STEPS):
+            for ext in (".pth", ".optjson", ".datastate.pkl"):
+                if not os.path.isfile(os.path.join(ckpt_dir, f"{it}_iterations{ext}")):
+                    raise AssertionError(f"missing {it}_iterations{ext}")
+        stats_path = os.path.join(ws, "statistics", "main", f"model_type={MODEL}",
+                                  *CLI_RUN, "statistics.pickle")
+        with open(stats_path, "rb") as f:
+            records = pickle.load(f)
+        at_keys = {"average_precision", "mAP", "auc", "mAUC", "precision",
+                   "recall", "f1", "macro_f1", "macro_precision", "macro_recall",
+                   "thresholds"}
+        sed_keys = {"f_measure", "error_rate", "overall", "class_wise",
+                    "class_wise_average"}
+        if sorted(r["iteration"] for r in records) != sorted(
+                2 * list(range(0, CLI_STEPS + 1, CLI_EVAL_INTERVAL))):
+            raise AssertionError(f"statistics iterations {[r['iteration'] for r in records]}")
+        for r in records:
+            if set(r["at"]) != at_keys or (r["data_type"] == "test"
+                                           and set(r["sed"]) != sed_keys):
+                raise AssertionError(f"statistics schema: {sorted(r)}")
+        steady = [e for e in run["evals"] if e["train_clips_per_s"]]
+        print(f"[cli] train {MODEL} bf16 batch {CLI_BATCH}, device cache on, "
+              f"{CLI_STEPS} steps, evals at 0/{CLI_EVAL_INTERVAL}/{CLI_STEPS}: "
+              f"{walls['train']:.3f} s wall; loss {run['loss']:.5f}; bank kernel "
+              f"launches {st.b1} ({CLI_STEPS} steps + {n_evals}×{per_eval} bank "
+              f"eval steps), waveform 0, plain frontend calls 0; peak memory "
+              f"{peak / 2**20:.1f} MiB [{card}]")
+        for e in run["evals"]:
+            cps = e["train_clips_per_s"]
+            print(f"[cli] eval at iter {e['iteration']}: train "
+                  f"{e['train_time']:.3f} s since the last eval"
+                  f"{'' if cps is None else f' ({cps:.2f} clips/s)'}, eval + "
+                  f"checkpoint {e['eval_time']:.3f} s (checkpoint "
+                  f"{e['checkpoint_time']:.3f} s) [{card}]")
+
+        # the same step in a bare loop at the same batch: what the CLI's own
+        # loop (prefetch thread, stream snapshots, λ draws) adds per step
+        bare_ms = _bare_step_ms(torch, cli, ws)
+        cli_ms = 1e3 * steady[-1]["train_time"] / CLI_EVAL_INTERVAL
+        print(f"[cli] the CLI's step (main._build) in a bare loop at batch "
+              f"{CLI_BATCH}: p50 {bare_ms:.3f} ms ({CLI_BATCH / bare_ms * 1e3:.2f} "
+              f"clips/s, CUDA events); the CLI loop between its last two evals "
+              f"{cli_ms:.3f} ms a step ({CLI_BATCH / cli_ms * 1e3:.2f} clips/s, "
+              f"host clock), {cli_ms / bare_ms:.4f}x the bare step [{card}]")
+
+        # 3. resume from iteration 10 in a copy of the workspace
+        ws_r = os.path.join(root, "ws_resume")
+        shutil.copytree(ws, ws_r)
+        seen["idx"].clear()
+        with counted("resume"):
+            cli.main(["train", f"--workspace={ws_r}", *CLI_ARGS, "--dtype=bf16",
+                      "--device_cache=on", f"--resume_iteration={CLI_EVAL_INTERVAL}",
+                      f"--stop_iteration={CLI_EVAL_INTERVAL + 1}",
+                      "--eval_interval=1000"])
+        saved = torch.load(os.path.join(ckpt_dir, f"{CLI_EVAL_INTERVAL}_iterations.pth"),
+                           map_location="cpu", weights_only=True)
+        _tensors_equal(seen["loaded"], saved)
+        if not np.array_equal(seen["idx"][0], first_idx[CLI_EVAL_INTERVAL]):
+            raise AssertionError(f"resumed batch {seen['idx'][0]} vs the "
+                                 f"uninterrupted run's {first_idx[CLI_EVAL_INTERVAL]}")
+        print(f"[cli] resume from {CLI_EVAL_INTERVAL}_iterations.pth in "
+              f"{walls['resume']:.3f} s: parameters, BatchNorm statistics, Adam "
+              "state, dropout and mixup generators and step equal the "
+              "checkpoint's; the next batch equals the uninterrupted run's "
+              f"step {CLI_EVAL_INTERVAL}")
+
+        # 4. one f32 step from that checkpoint through either transport
+        losses = {}
+        for mode in ("on", "off"):
+            ws_t = os.path.join(root, f"ws_{mode}")
+            shutil.copytree(ws, ws_t)
+            with counted(f"step_cache_{mode}") as st:
+                losses[mode] = cli.main(
+                    ["train", f"--workspace={ws_t}", *CLI_ARGS, "--dtype=f32",
+                     f"--device_cache={mode}",
+                     f"--resume_iteration={CLI_EVAL_INTERVAL}",
+                     f"--stop_iteration={CLI_EVAL_INTERVAL + 1}",
+                     "--eval_interval=1000"])["loss"]
+            want = (1, 0) if mode == "on" else (0, 1)
+            if (st.b1, st.b2) != want:
+                raise AssertionError(f"device cache {mode}: {st.b1} bank / "
+                                     f"{st.b2} waveform launches, expected {want}")
+            shutil.rmtree(ws_t)
+        rel = abs(losses["on"] - losses["off"]) / abs(losses["off"])
+        print(f"[cli] one f32 step from iteration {CLI_EVAL_INTERVAL}: loss "
+              f"{losses['on']:.7f} through the bank kernel, {losses['off']:.7f} "
+              f"through host-fed int16 batches and the waveform kernel (rel "
+              f"{rel:.3e}, limit 1e-5)")
+        if not rel <= 1e-5:
+            raise AssertionError("the two transports disagree")
+
+        # 5. inference, threshold searches and metrics
+        for data_type in ("testing", "evaluation"):
+            with counted(f"inference_{data_type}") as st:
+                cli.main(["inference", f"--workspace={ws}", *CLI_ARGS,
+                          "--dtype=bf16", f"--data_type={data_type}"])
+            if st.b2 != 1 or st.b1:
+                raise AssertionError(f"inference {data_type}: {st.b2} waveform / "
+                                     f"{st.b1} bank launches, expected 1 / 0")
+        for stage in ("optimize_at_thresholds", "optimize_sed_thresholds"):
+            with counted(stage):
+                cli.main([stage, f"--workspace={ws}", *CLI_ARGS])
+        metrics_json = os.path.join(root, "metrics.json")
+        with counted("calculate_metrics"):
+            cli.main(["calculate_metrics", f"--workspace={ws}", *CLI_ARGS,
+                      "--use_optimized_thresholds", f"--metrics_out={metrics_json}"])
+        with open(metrics_json) as f:
+            metrics = json.load(f)
+        sub = os.path.join(ws, "_submissions", "main", f"model_type={MODEL}",
+                           *CLI_RUN, "testing_submission.csv")
+        if not os.path.isfile(sub) or metrics["n_clips"] != CLI_TEST:
+            raise AssertionError("calculate_metrics wrote no submission or "
+                                 "the wrong clip count")
+        print(f"[cli] inference testing/evaluation {walls['inference_testing']:.3f}"
+              f" / {walls['inference_evaluation']:.3f} s (1 waveform kernel launch "
+              f"each); optimize_at_thresholds {walls['optimize_at_thresholds']:.3f}"
+              f" s; optimize_sed_thresholds {walls['optimize_sed_thresholds']:.3f} s "
+              f"(numpy search: {CLI_TEST}×1001×17 < 2M); calculate_metrics "
+              f"{walls['calculate_metrics']:.3f} s: mAP {metrics['at']['mAP']:.4f}, "
+              f"segment F1 {metrics['sed']['overall']['f_measure']['f_measure']:.4f}")
+
+        # 6. the device segment scorer against the numpy oracle
+        pred_dir = os.path.join(ws, "predictions", "main", f"model_type={MODEL}",
+                                *CLI_RUN)
+        with open(os.path.join(pred_dir, "testing.pickle"), "rb") as f:
+            preds = pickle.load(f)
+        fw, names = preds["framewise_output"], preds["audio_name"]
+        gt = scoring.read_ground_truth(os.path.join(
+            ws, "synth_dataset", "metadata", "groundtruth_strong_label_testing_set.csv"))
+        scorer = sed_fast.DeviceSegmentScorer(fw, names, gt, labels, 100)
+        if scorer.device.type != "cuda":
+            raise AssertionError(f"the scorer resolved to {scorer.device}")
+        rng = np.random.default_rng(8)
+        lo_q, hi_q = np.quantile(fw, [0.3, 0.99])
+        times = []
+        for _ in range(20):
+            high = rng.uniform(lo_q, hi_q, len(labels))
+            low = high * rng.uniform(0.3, 1.0, len(labels))
+            n_smooth, n_salt = (int(v) for v in rng.integers(1, 21, 2))
+            t0 = time.perf_counter()
+            counts = scorer.segment_counts(high, low, n_smooth, n_salt)
+            times.append(time.perf_counter() - t0)
+            events = sed.events_from_binary(
+                sed.binarize(fw, high, low, n_smooth, n_salt), 100, labels)
+            m = scoring.segment_based_metrics(
+                gt, {names[i]: events[i] for i in range(len(names))}, 10.0, 1.0,
+                labels)
+            want = tuple(int(sum(cw[k] for cw in m["class_wise"].values()))
+                         for k in ("ntp", "nfp", "nfn"))
+            if counts != want:
+                raise AssertionError(f"device scorer counts {counts}, numpy {want}")
+        print(f"[cli] sed_fast.DeviceSegmentScorer on the card over {len(names)}"
+              f"×1001×17 predictions: 20 random parameter sets, integer counts "
+              f"== the numpy oracle's; {1e3 * np.median(times):.3f} ms per score "
+              f"(median; first {1e3 * times[0]:.3f} ms) [{card}]")
+        _full_size_search(torch, cfg, labels, card)
+
+        # 7. serve the best checkpoint
+        run_config = "/".join(CLI_RUN)
+        wave = _request(cfg, BATCH, 9)
+        with counted("from_workspace") as st:
+            pred = serving.Predictor.from_workspace(ws, MODEL, run_config,
+                                                    iteration="best")
+            out = pred(wave)
+        if st.b2 != 1 or pred.device.type != "cuda":
+            raise AssertionError(f"from_workspace: {st.b2} launches on {pred.device}")
+        best_it = int(sedt.utils.statistics.best_iteration(stats_path)[0])
+        model_cpu = checkpoints.load_model(
+            os.path.join(ckpt_dir, f"{best_it}_iterations.pth"),
+            sedt.get_model(MODEL))
+    finally:
+        for k in plain:
+            setattr(stft, k, plain[k])
+        train.make_train_step, checkpoints.load_checkpoint = make_train_step, load_checkpoint
+    ref = serving.Predictor(model_cpu, cfg, scalar=sedt.data.load_scalar(
+        os.path.join(ws, "scalars", "training.h5")), sed_params=pred.sed_params,
+        device="cpu")(wave)
+    _check_outputs(out, BATCH, cfg)
+    d = max(float(np.abs(out[k] - ref[k]).max())
+            for k in ("clipwise_output", "framewise_output"))
+    print(f"[cli] Predictor.from_workspace(iteration='best' = {best_it}) served "
+          f"{BATCH}×10 s on the card in {walls['from_workspace']:.3f} s (load + "
+          f"first request); vs the same checkpoint on the CPU max |Δ| {d:.3e} "
+          "(limit 1e-4)")
+    if not d <= 1e-4:
+        raise AssertionError("from_workspace on the card disagrees with the CPU")
+    print("[cli] stage wall times (s): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in walls.items()) + f" [{card}]")
+    print(f"[cli] launches in the phase: bank kernel {launches['logmel_bank']}, "
+          f"waveform kernel {launches['logmel']}")
+    shutil.rmtree(root)
+    return launches
+
+
 
 def main() -> int:
     import torch
@@ -887,7 +1356,12 @@ def main() -> int:
     bank_kernel, bank, targets, scale = phase_bank_kernel(torch, sedt, card)
     bank_kernel["launches"] = phase_train(torch, sedt, card, bank, targets,
                                           scale)
-    forbidden = [m for m in ("jax", "flax", "optax",
+    del bank
+    cli = phase_cli(torch, sedt, card)
+    kernel["launches_cli"] = cli["logmel"]
+    bank_kernel["launches_cli"] = cli["logmel_bank"]
+    forbidden = [m for m in ("jax", "flax", "optax", "h5py", "sklearn",
+                             "msgpack",
                              "sound_event_detection_dcase2017_task4_tpu")
                  if m in sys.modules]
     if forbidden:

@@ -2,10 +2,13 @@
 
 The JAX package stays the reference; this package mirrors its module names
 (``config``, ``ops/stft``, ``models``, ``losses``, ``train``, ``sed``,
-``serving``, ``data/hdf5``) with PyTorch inside, and replaces each Pallas TPU
-kernel with a kernel written by hand for Hopper (``ops/logmel_cuda.py`` +
-``ops/csrc/logmel.cu``). It imports ``torch``, never ``jax``, and nothing of
-the JAX package.
+``sed_fast``, ``serving``, ``checkpoints``, ``evaluate``, ``scoring``,
+``autoth``, ``data``, ``features``, ``main``) with PyTorch inside, and
+replaces each Pallas TPU kernel with a kernel written by hand for Hopper
+(``ops/logmel_cuda.py`` + ``ops/csrc/logmel.cu``). It imports ``torch``,
+never ``jax``, and nothing of the JAX package; it needs neither ``h5py``
+(``data/h5.py`` reads and writes the HDF5 subset of the packed corpus) nor
+``scikit-learn`` nor ``msgpack``.
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); see :func:`resolve_device`.
@@ -54,7 +57,8 @@ def __getattr__(name):
         "make_train_step": ("train", "make_train_step"),
     }
     module_level = {"sed", "models", "serving", "weights", "ops", "train",
-                    "losses", "data"}
+                    "losses", "data", "checkpoints", "evaluate", "scoring",
+                    "autoth", "sed_fast", "features", "main", "utils"}
     if name in lazy:
         mod, attr = lazy[name]
         return getattr(importlib.import_module(f".{mod}", __name__), attr)

@@ -11,22 +11,25 @@ out, with the JAX package's keys and dtypes.
 Usage::
 
     predictor = Predictor(model, cfg, scalar=(mean, std))   # on the card
+    predictor = Predictor.from_workspace(workspace, model_type, run_config)
     result = predictor(waveform_batch)          # probs + event activity
     events = predictor.detect_events(waveform_batch)
-
-``Predictor.from_workspace`` (flax msgpack checkpoints, HDF5 scalars) waits
-for the checkpoints slice, ROADMAP A6.
 """
 
 from __future__ import annotations
 
+import logging
+import os
+import pickle
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from . import resolve_device, sed
+from . import checkpoints, resolve_device, sed
 from .config import Config, DEFAULT, labels as _default_labels
+from .data.hdf5 import load_scalar
+from .models import get_model
 from .ops.stft import make_logmel_fn
 
 __all__ = ["Predictor", "StreamingDetector"]
@@ -60,6 +63,69 @@ class Predictor:
             self._norm = (torch.from_numpy(mean).to(self.device),
                           torch.from_numpy(np.maximum(std, np.float32(1e-8))
                                            ).to(self.device))
+
+    @classmethod
+    def from_workspace(cls, workspace: str, model_type: str,
+                       run_config: str, cfg: Config = DEFAULT,
+                       iteration: "Optional[int | str]" = None,
+                       sed_params: Optional[dict] = None,
+                       dtype: torch.dtype = torch.float32,
+                       device=None) -> "Predictor":
+        """Serve a training run of the port's CLI: the latest checkpoint,
+        the given ``iteration``, or ``"best"`` — the eval iteration with the
+        highest test-split mAP in the run's statistics (the CLI's
+        ``--iteration best``). ``run_config`` is the path segment after
+        ``model_type=…``, e.g.
+        ``"loss_type=clip_bce/augmentation=mixup/batch_size=32"``. The
+        scalar comes from ``scalars/training.h5``; ``dtype`` is the compute
+        type (parameters stay float32); ``device=None`` is the CUDA card.
+
+        Without ``sed_params``, the run's tuned decode parameters
+        (``opt_thresholds/.../sed.pickle``) are applied unless the
+        iteration is pinned: they were tuned on the newest checkpoint's
+        predictions, and ``"best"`` counts as not pinned when it is the
+        newest checkpoint.
+        """
+        model = get_model(model_type, dtype=dtype)
+        ckpt_dir = os.path.join(workspace, "checkpoints", "main",
+                                f"model_type={model_type}", run_config)
+        pinned = iteration is not None
+        if iteration == "best":
+            from .utils.statistics import best_iteration
+
+            stats = os.path.join(workspace, "statistics", "main",
+                                 f"model_type={model_type}", run_config,
+                                 "statistics.pickle")
+            iteration, _, _ = best_iteration(stats)
+            latest = checkpoints.latest_checkpoint(ckpt_dir)
+            pinned = latest is None or not latest.endswith(
+                f"{os.sep}{iteration}_iterations.pth")
+        path = (os.path.join(ckpt_dir, f"{iteration}_iterations.pth")
+                if iteration is not None
+                else checkpoints.latest_checkpoint(ckpt_dir))
+        if path is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        checkpoints.load_model(path, model)
+        scalar = load_scalar(os.path.join(workspace, "scalars", "training.h5"))
+        if sed_params is None:
+            log = logging.getLogger(__name__)
+            opt = os.path.join(workspace, "opt_thresholds", "main",
+                               f"model_type={model_type}", run_config,
+                               "sed.pickle")
+            if os.path.isfile(opt):
+                if pinned:
+                    log.warning(
+                        "serving: NOT auto-loading %s — iteration=%s is "
+                        "pinned and the tuned decode params belong to the "
+                        "latest checkpoint; pass sed_params= to apply them "
+                        "anyway", opt, iteration)
+                else:
+                    with open(opt, "rb") as f:
+                        sed_params = pickle.load(f)["sed_params"]
+                    log.info("serving: applied tuned SED decode params "
+                             "from %s", opt)
+        return cls(model, cfg, scalar=scalar, sed_params=sed_params,
+                   device=device)
 
     @torch.inference_mode()
     def _predict(self, waveform: np.ndarray):

@@ -16,8 +16,10 @@ state owns: dropout masks from a ``torch.Generator`` on the step's device,
 mixup's λ ~ Beta(α, α) from a ``numpy.random.Generator`` on the host (B
 values a step, copied with the labels); no global generator is touched.
 
-``spec_augment`` and ``--remat`` wait for ROADMAP A10, ``forward_generator``
-for A8.
+:func:`forward_generator` runs an eval step over a finite batch generator
+and gathers its outputs as numpy arrays (the inference and evaluation path).
+
+``spec_augment`` and ``--remat`` wait for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from .losses import get_loss_func
 
 __all__ = ["TrainState", "create_train_state", "default_optimizer",
            "resolve_opt_config", "make_train_step", "make_eval_step",
-           "mixup"]
+           "mixup", "forward_generator"]
 
 # Transformer-variant stabilizers of the JAX package (``train.py:50-60``):
 # linear LR warmup and global-norm clipping by default for
@@ -251,7 +253,8 @@ def make_eval_step(model, frontend: Optional[Callable] = None,
                    bank_frontend: Optional[Callable] = None):
     """The inference step ``batch_x → output dict`` (eval mode, running
     BatchNorm statistics), on the model's device; with ``bank``,
-    ``batch_idx → output dict`` as in :func:`make_train_step`."""
+    ``batch_idx → output dict`` as in :func:`make_train_step`. The step's
+    ``device`` attribute is the model's device."""
     device = next(model.parameters()).device
     _check_bank_device(bank, device)
     norm = _scalar_on(scalar, device)
@@ -263,8 +266,48 @@ def make_eval_step(model, frontend: Optional[Callable] = None,
         return model(x, train=False)
 
     if bank is None:
-        return lambda batch_x: eval_fn(_to_device(batch_x, device), False)
-    if bank_frontend is not None:
-        return lambda batch_idx: eval_fn(bank_frontend(bank, batch_idx), True)
-    return lambda batch_idx: eval_fn(
-        bank.index_select(0, _to_device(batch_idx, device, torch.long)), False)
+        step = lambda batch_x: eval_fn(_to_device(batch_x, device), False)  # noqa: E731
+    elif bank_frontend is not None:
+        step = lambda batch_idx: eval_fn(bank_frontend(bank, batch_idx), True)  # noqa: E731
+    else:
+        step = lambda batch_idx: eval_fn(  # noqa: E731
+            bank.index_select(0, _to_device(batch_idx, device, torch.long)),
+            False)
+    step.device = device          # forward_generator pins for a CUDA step
+    return step
+
+
+def forward_generator(eval_step, generate_func, return_target: bool = True,
+                      prefetch: int = 2) -> dict:
+    """Accumulate an eval step's outputs over a finite generator of
+    ``(batch_x, batch_y)`` as numpy arrays: ``clipwise_output``,
+    ``framewise_output`` and (optionally) ``target`` (reference:
+    ``pytorch/pytorch_utils.py:forward``).
+
+    The port's eval step (:func:`make_eval_step`) holds its model, so there
+    is no ``state`` argument where the JAX package passes its train state.
+    ``prefetch`` batches are assembled ahead in a background thread (pinned
+    for a CUDA step), so that host reads overlap the device; ``prefetch=0``
+    runs serially.
+    """
+    from .data.generator import _pinned, prefetch_to_device
+
+    acc: dict = {"clipwise_output": [], "framewise_output": []}
+    if return_target:
+        acc["target"] = []
+    pin = eval_step.device.type == "cuda"
+
+    def stage(batch):
+        batch_x, batch_y = batch
+        return (_pinned(batch_x) if pin else batch_x), batch_y
+
+    staged = (prefetch_to_device(generate_func, size=prefetch, stage=stage)
+              if prefetch else map(stage, generate_func))
+    for batch_x, batch_y in staged:
+        out = eval_step(batch_x)
+        acc["clipwise_output"].append(out["clipwise_output"].float().cpu().numpy())
+        acc["framewise_output"].append(
+            out["framewise_output"].float().cpu().numpy())
+        if return_target:
+            acc["target"].append(np.asarray(batch_y))
+    return {k: np.concatenate(v, axis=0) for k, v in acc.items()}

@@ -7,15 +7,17 @@ Run them on the card, where the JAX package need not be installed:
 The hand-written log-mel kernel (both entries: waveform batches and the
 int16/float32 corpus bank) is held to its plain PyTorch version on the card
 (TF32 off): 0.1 dB absolute and rtol 2e-3 in the linear domain; the int16
-bank launch is bit-equal to the waveform launch on the decoded rows.
-This file imports nothing of the JAX package.
+bank launch is bit-equal to the waveform launch on the decoded rows. The
+CLI trains on the card through the bank kernel (device cache on) and the
+waveform kernel (off). This file imports nothing of the JAX package.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from sound_event_detection_dcase2017_task4_torch import config, serving, train
+from sound_event_detection_dcase2017_task4_torch import (config, features,
+                                                         main, serving, train)
 from sound_event_detection_dcase2017_task4_torch.models import SedCnn
 from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
 
@@ -162,3 +164,27 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(g_gpu, g_cpu, rtol=1e-4)
     for k in s_cpu:
         torch.testing.assert_close(s_gpu[k], s_cpu[k], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["on", "off"])
+def test_cli_trains_through_the_kernels(cuda, tmp_path, mode):
+    """``main train`` for 4 steps on the card over a tiny packed workspace
+    (evals at 0 and 4, one train and one test batch each): the device cache
+    launches the bank kernel once per step and eval step, host-fed int16
+    batches the waveform kernel."""
+    ws = str(tmp_path / "ws")
+    before = logmel_cuda.LAUNCHES
+    features.main(["pack_synthetic", f"--workspace={ws}", "--num_train=8",
+                   "--num_test=4", "--num_eval=4", "--clip_seconds=0.5",
+                   "--metadata_only"])                    # device → cuda
+    assert logmel_cuda.LAUNCHES == before + 3             # one batch a split
+    b1, b2 = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+    run = main.main(["train", f"--workspace={ws}", "--batch_size=4",
+                     "--model_type=Cnn_5layers_AvgPooling",
+                     "--feature_source=waveform", "--augmentation=mixup",
+                     f"--device_cache={mode}", "--stop_iteration=4",
+                     "--eval_interval=4", "--eval_max_iteration=1"])
+    torch.cuda.synchronize()
+    launches = (logmel_cuda.BANK_LAUNCHES - b1, logmel_cuda.LAUNCHES - b2)
+    assert launches == ((8, 0) if mode == "on" else (0, 8))
+    assert run["iteration"] == 4 and np.isfinite(run["loss"])

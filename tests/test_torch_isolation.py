@@ -1,9 +1,12 @@
-"""The port stands alone: it never imports jax, flax, optax or the JAX package.
+"""The port stands alone: it never imports jax, flax, optax or the JAX
+package, nor h5py, scikit-learn or msgpack.
 
-A subprocess imports the port, serves one CPU request and takes one CPU
-train step over an int16 bank (after checking that ``create_train_state``
-with no device raises without a card), then checks ``sys.modules``; a source scan checks every module of the port and
-``chip_smoke.py`` for such imports.
+Subprocesses import the port, serve one CPU request and take one CPU train
+step over an int16 bank (after checking that ``create_train_state`` with no
+device raises without a card), and run the CLI on the CPU (``features
+pack_synthetic``, ``main train`` → ``inference`` → ``calculate_metrics``),
+then check ``sys.modules``; a source scan checks every module of the port
+and ``chip_smoke.py`` for such imports.
 """
 
 import ast
@@ -14,7 +17,8 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "sound_event_detection_dcase2017_task4_torch"
-FORBIDDEN = ("jax", "flax", "optax", "sound_event_detection_dcase2017_task4_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "sound_event_detection_dcase2017_task4_tpu",
+             "h5py", "sklearn", "msgpack")
 
 
 def test_serving_a_request_loads_no_jax():
@@ -55,6 +59,31 @@ def test_serving_a_request_loads_no_jax():
     assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
 
 
+def test_the_cli_pipeline_loads_no_jax_h5py_sklearn_or_msgpack(tmp_path):
+    ws = str(tmp_path / "ws")
+    code = (
+        "import sys\n"
+        "from sound_event_detection_dcase2017_task4_torch import features, main\n"
+        f"ws = {ws!r}\n"
+        "features.main(['pack_synthetic', f'--workspace={ws}', '--num_train=8',\n"
+        "               '--num_test=4', '--num_eval=4', '--clip_seconds=0.5',\n"
+        "               '--metadata_only'], device='cpu')\n"
+        "c = [f'--workspace={ws}', '--model_type=Cnn_5layers_AvgPooling',\n"
+        "     '--batch_size=4', '--feature_source=waveform']\n"
+        "main.main(['train', *c, '--stop_iteration=2', '--eval_interval=2',\n"
+        "           '--eval_max_iteration=1'], device='cpu')\n"
+        "main.main(['inference', *c, '--data_type=testing'], device='cpu')\n"
+        "main.main(['calculate_metrics', *c, '--data_type=testing'], device='cpu')\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
+    assert "SED: segF1=" in proc.stdout
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -67,7 +96,11 @@ def _imports(path: Path):
 
 def test_port_sources_import_no_jax():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 12
+    names = {p.relative_to(PORT).as_posix() for p in files if PORT in p.parents}
+    assert {"main.py", "features.py", "checkpoints.py", "evaluate.py",
+            "sed_fast.py", "scoring.py", "autoth.py", "audio_io.py",
+            "data/h5.py", "data/hdf5.py", "data/generator.py", "data/synth.py",
+            "utils/statistics.py"} <= names
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
