@@ -65,10 +65,28 @@ random weights, in phases that each raise on failure:
    ``Predictor.from_workspace(iteration="best")`` on a 16-clip request
    against the same checkpoint served on the CPU (1e-4). Stage wall times,
    train clips/s, eval and checkpoint times, peak memory and the launches
-   of both kernels are printed.
+   of both kernels are printed;
+9. the rest of the zoo, ``Cnn_9layers_Glu_AttPooling`` and
+   ``Cnn_9layers_Transformer_FrameAtt`` at full width from seed 0, while
+   phase 6's bank is still staged: a ``Predictor`` on the card serves
+   16 × 10 s requests in f32 and bf16 (the GLU with BatchNorm statistics
+   calibrated on the request; waveform kernel launches counted from zero,
+   1 per request; the plain frontend never runs; the clipwise outputs
+   spread by at least 1e-2 over the clips; two clips held to the CPU at
+   1e-4, bf16 to f32 within ``BF16_ATOL``; p50 over 20
+   requests, clips/s, peak memory); 10 bf16 steps at batch 128 over the
+   bank with SpecAugment and mixup α = 1 (bank kernel launches counted,
+   loss finite, p50 by CUDA events, clips/s, ``max_memory_allocated``; the
+   GLU model with ``remat`` off and on; one step's device time by kernel);
+   one f32 step on 2 clips, every dropout 0, held to the CPU (loss rtol
+   2e-5, grad-norm 1e-4, BN statistics 1e-4) and, for GLU, remat on held to
+   remat off; then ``main train`` of the Transformer with
+   ``--augmentation=mixup_specaugment --remat`` (5 steps, evals at 0 and 5)
+   and ``inference`` in phase 8's workspace.
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
-``launches_cli`` of phase 8), then as its last line
+``launches_cli`` of phase 8, ``launches_zoo`` of phase 9), then as its last
+line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 when no CUDA device is available or any phase fails. It imports nothing of
 the JAX package.
@@ -142,6 +160,56 @@ def _profiled_kernel_ms(torch, fn, name, iters=10):
             total_us += getattr(ev, "device_time_total",
                                 getattr(ev, "cuda_time_total", 0.0))
     return total_us / iters / 1e3 if total_us > 0 else None
+
+
+def _p50_latency(pred, wave, reps=20):
+    """p50 host time of ``pred(wave)`` over ``reps`` calls after 3 warm-ups
+    (each call ends in a device→host copy, which synchronises)."""
+    for _ in range(3):
+        pred(wave)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pred(wave)
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times)) * 1e3
+
+
+class _PlainGuard:
+    """Counts calls of ``stft``'s plain frontends while in the ``with``
+    body; shown first to see a CPU call of each."""
+
+    def __init__(self, torch, cfg):
+        from sound_event_detection_dcase2017_task4_torch.ops import stft
+
+        self.stft, self.cfg, self.torch = stft, cfg, torch
+        self.plain = {k: getattr(stft, k) for k in ("logmel", "logmel_bank")}
+        self.calls = dict.fromkeys(self.plain, 0)
+
+    def _counting(self, name):
+        def fn(*a, **k):
+            self.calls[name] += 1
+            return self.plain[name](*a, **k)
+        return fn
+
+    def __enter__(self):
+        stft, cfg, torch = self.stft, self.cfg, self.torch
+        for k in self.plain:
+            setattr(stft, k, self._counting(k))
+        n_rows = stft._geometry(cfg, cfg.clip_samples)[-1]
+        stft.make_logmel_fn(cfg)(torch.zeros(1, cfg.clip_samples))
+        stft.make_logmel_bank_fn(cfg, wave_scale=2.0 ** -15)(
+            torch.zeros((1, n_rows, cfg.hop_size), dtype=torch.int16), [0])
+        if not min(self.calls.values()) >= 1:
+            raise AssertionError(f"the plain-frontend guard missed a CPU call: "
+                                 f"{self.calls}")
+        self.calls.update(logmel=0, logmel_bank=0)
+        return self
+
+    def __exit__(self, *exc):
+        for k, fn in self.plain.items():
+            setattr(self.stft, k, fn)
+        return False
 
 
 def phase_device(torch):
@@ -417,7 +485,7 @@ def _check_outputs(out, n, cfg):
 
 
 def phase_slice(torch, sedt, card):
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
 
     cfg = sedt.config.DEFAULT
     rng = np.random.default_rng(1)
@@ -434,21 +502,9 @@ def phase_slice(torch, sedt, card):
     rec = _request(cfg, 4, 3).reshape(-1)[: int(35.0 * cfg.sample_rate)]
 
     # ---- the main path: counters zeroed just before, read just after ----
-    plain_calls = []
-    plain_logmel = stft.logmel
-
-    def counting_plain(*a, **k):
-        plain_calls.append(1)
-        return plain_logmel(*a, **k)
-
-    # the Predictor's frontend looks the plain version up as ``stft.logmel``
-    # at each call, so the patch sees it; shown once on a CPU tensor
-    stft.logmel = counting_plain
-    try:
-        pred._frontend(torch.zeros(1, cfg.clip_samples))
-        if len(plain_calls) != 1:
-            raise AssertionError("the plain-frontend guard missed a CPU call")
-        plain_calls.clear()
+    # (the Predictor's frontend looks the plain version up as
+    # ``stft.logmel`` at each call, so the guard's patch sees it)
+    with _PlainGuard(torch, cfg) as guard:
         logmel_cuda.LAUNCHES = 0
         out = pred(wave)
         n_request = logmel_cuda.LAUNCHES
@@ -470,8 +526,6 @@ def phase_slice(torch, sedt, card):
             pos += size
         streamed += det.flush()
         torch.cuda.synchronize()
-    finally:
-        stft.logmel = plain_logmel
     launches = logmel_cuda.LAUNCHES
     # ----------------------------------------------------------------------
 
@@ -479,8 +533,8 @@ def phase_slice(torch, sedt, card):
     if n_request != 1 or launches < 4:
         raise AssertionError(f"kernel launches: {n_request} for one request, "
                              f"{launches} on the whole path")
-    if plain_calls:
-        raise AssertionError(f"plain frontend ran {len(plain_calls)}× on the CUDA path")
+    if any(guard.calls.values()):
+        raise AssertionError(f"plain frontend ran on the CUDA path: {guard.calls}")
     if len(events) != BATCH:
         raise AssertionError("detect_events: wrong number of clips")
     n_frames_long = 1 + len(rec) // cfg.hop_size
@@ -509,15 +563,8 @@ def phase_slice(torch, sedt, card):
         raise AssertionError("card and CPU disagree")
 
     # latency / throughput / memory
-    def p50_latency(p, reps=20):
-        for _ in range(3):
-            p(wave)
-        times = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            p(wave)                      # ends in .cpu(): synchronises
-            times.append(time.perf_counter() - t0)
-        return float(np.median(times)) * 1e3
+    def p50_latency(p):
+        return _p50_latency(p, wave)
 
     torch.cuda.reset_peak_memory_stats()
     lat32 = p50_latency(pred)
@@ -765,23 +812,7 @@ def phase_train(torch, sedt, card, bank, targets, scale):
     ys = [targets[b] for b in batches]
 
     # ---- the main path: counters zeroed just before, read just after ----
-    calls = {"logmel_bank": 0, "logmel": 0}
-    plain = {k: getattr(stft, k) for k in calls}
-
-    def counting(name):
-        def fn(*a, **k):
-            calls[name] += 1
-            return plain[name](*a, **k)
-        return fn
-
-    for k in calls:
-        setattr(stft, k, counting(k))
-    try:
-        n_rows = stft._geometry(cfg, cfg.clip_samples)[-1]
-        bank_fn(torch.zeros((1, n_rows, cfg.hop_size), dtype=torch.int16), [0])
-        if calls["logmel_bank"] != 1:
-            raise AssertionError("the plain-bank guard missed a CPU call")
-        calls.update(logmel_bank=0, logmel=0)
+    with _PlainGuard(torch, cfg) as guard:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         logmel_cuda.BANK_LAUNCHES = 0
@@ -795,9 +826,6 @@ def phase_train(torch, sedt, card, bank, targets, scale):
             marks[i + 1].record()
         out = evaluate(batches[0][:EVAL_BATCH])
         torch.cuda.synchronize()
-    finally:
-        for k in calls:
-            setattr(stft, k, plain[k])
     launches, waveform_launches = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     # ----------------------------------------------------------------------
@@ -810,8 +838,8 @@ def phase_train(torch, sedt, card, bank, targets, scale):
         raise AssertionError(f"bank kernel launches {launches} for "
                              f"{TRAIN_STEPS} steps + 1 eval; waveform kernel "
                              f"{waveform_launches}")
-    if any(calls.values()):
-        raise AssertionError(f"plain frontend ran on the CUDA path: {calls}")
+    if any(guard.calls.values()):
+        raise AssertionError(f"plain frontend ran on the CUDA path: {guard.calls}")
     if not np.isfinite(losses).all() or any(bad) or not np.isfinite(norms).all():
         raise AssertionError(f"non-finite training: losses {losses}, "
                              f"non-finite counts {bad}")
@@ -1010,9 +1038,10 @@ def _bare_step_ms(torch, cli, ws, steps=20, warmup=3):
                             for i in range(steps)]))
 
 
-def phase_cli(torch, sedt, card):
-    """Phase 8 (see the module docstring). Returns the bank and waveform
-    kernel launches of the phase."""
+def phase_cli(torch, sedt, card, root):
+    """Phase 8 (see the module docstring), in a workspace under ``root``
+    that phase 9 goes on using. Returns the bank and waveform kernel
+    launches of the phase and the workspace."""
     from sound_event_detection_dcase2017_task4_torch import (
         checkpoints, features, main as cli, scoring, sed, sed_fast, serving,
         train)
@@ -1022,10 +1051,9 @@ def phase_cli(torch, sedt, card):
         _quantize_int16, read_split)
     from sound_event_detection_dcase2017_task4_torch.data.synth import (
         make_synthetic_dataset)
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
 
     cfg = sedt.config.DEFAULT
-    root = tempfile.mkdtemp(prefix="sedx_cli_")
     ws = os.path.join(root, "ws")
     walls = {}
     launches = {"logmel": 0, "logmel_bank": 0}
@@ -1047,17 +1075,6 @@ def phase_cli(torch, sedt, card):
                 return False
         return _Stage()
 
-    # the plain frontends must not run on the card: count their calls (the
-    # guard is first shown to see a CPU call of each)
-    plain = {k: getattr(stft, k) for k in ("logmel", "logmel_bank")}
-    calls = {k: 0 for k in plain}
-
-    def counting(name):
-        def fn(*a, **k):
-            calls[name] += 1
-            return plain[name](*a, **k)
-        return fn
-
     # record every train step's batch index (the resume check) and the
     # state right after a checkpoint is loaded
     seen = {"idx": [], "loaded": None}
@@ -1076,246 +1093,239 @@ def phase_cli(torch, sedt, card):
         seen["loaded"] = checkpoints.state_dict(state)
         return out
 
-    for k in plain:
-        setattr(stft, k, counting(k))
     train.make_train_step = recording_make_train_step
     checkpoints.load_checkpoint = recording_load
     try:
-        n_rows = stft._geometry(cfg, cfg.clip_samples)[-1]
-        stft.make_logmel_fn(cfg)(torch.zeros(1, cfg.clip_samples))
-        stft.make_logmel_bank_fn(cfg, wave_scale=2.0 ** -15)(
-            torch.zeros((1, n_rows, cfg.hop_size), dtype=torch.int16), [0])
-        if not min(calls.values()) >= 1:      # the plain bank calls logmel too
-            raise AssertionError(f"the plain-frontend guard missed a CPU call: {calls}")
-        calls.update(logmel=0, logmel_bank=0)
+        # the plain frontends must not run on the card: count their calls
+        with _PlainGuard(torch, cfg) as guard:
+            calls, plain = guard.calls, guard.plain
 
-        # 1. pack the corpus on the card
-        with counted("pack_synthetic") as st:
-            features.main(["pack_synthetic", f"--workspace={ws}",
-                           f"--num_train={CLI_TRAIN}", f"--num_test={CLI_TEST}",
-                           f"--num_eval={CLI_EVAL}", "--metadata_only"])
-        packs = (-(-CLI_TRAIN // 32) + -(-CLI_TEST // 32) + -(-CLI_EVAL // 32))
-        if st.b2 != packs or st.b1:
-            raise AssertionError(f"pack_synthetic launched {st.b2} waveform / "
-                                 f"{st.b1} bank kernels, expected {packs} / 0")
-        train_h5 = os.path.join(ws, "features", "training.h5")
-        packed = h5.open(train_h5)
-        clips = make_synthetic_dataset(8, cfg, seed=0)
-        wave8 = np.stack([c.waveform for c in clips])
-        with torch.no_grad():
-            want = plain["logmel"](torch.from_numpy(wave8).cuda(), cfg)
-        got = torch.from_numpy(np.array(packed["feature"][:8])).cuda()
-        err_pack, ok = _db_bound_ok(got, want)
-        if not ok:
-            raise AssertionError(f"packed features vs plain: max |Δ| {err_pack} dB")
-        stored = np.array(packed["waveform"][:8])
-        if not np.array_equal(stored, _quantize_int16(wave8)):
-            raise AssertionError("stored int16 waveforms differ from the clips")
-        reader = read_split(train_h5, load_waveform=True)
-        if reader.waveform.raw.dtype != np.int16 or not np.array_equal(
-                reader.waveform.raw[:8], stored):
-            raise AssertionError("the port's reader does not give the int16 back")
-        print(f"[cli] pack_synthetic {CLI_TRAIN}/{CLI_TEST}/{CLI_EVAL} × 10 s in "
-              f"{walls['pack_synthetic']:.3f} s: {st.b2} waveform kernel launches; "
-              f"8 clips' features vs plain max |Δ| {err_pack:.3e} dB (limit 0.1, "
-              "linear within rtol 2e-3); int16 waveforms read back bit for bit")
+            # 1. pack the corpus on the card
+            with counted("pack_synthetic") as st:
+                features.main(["pack_synthetic", f"--workspace={ws}",
+                               f"--num_train={CLI_TRAIN}", f"--num_test={CLI_TEST}",
+                               f"--num_eval={CLI_EVAL}", "--metadata_only"])
+            packs = (-(-CLI_TRAIN // 32) + -(-CLI_TEST // 32) + -(-CLI_EVAL // 32))
+            if st.b2 != packs or st.b1:
+                raise AssertionError(f"pack_synthetic launched {st.b2} waveform / "
+                                     f"{st.b1} bank kernels, expected {packs} / 0")
+            train_h5 = os.path.join(ws, "features", "training.h5")
+            packed = h5.open(train_h5)
+            clips = make_synthetic_dataset(8, cfg, seed=0)
+            wave8 = np.stack([c.waveform for c in clips])
+            with torch.no_grad():
+                want = plain["logmel"](torch.from_numpy(wave8).cuda(), cfg)
+            got = torch.from_numpy(np.array(packed["feature"][:8])).cuda()
+            err_pack, ok = _db_bound_ok(got, want)
+            if not ok:
+                raise AssertionError(f"packed features vs plain: max |Δ| {err_pack} dB")
+            stored = np.array(packed["waveform"][:8])
+            if not np.array_equal(stored, _quantize_int16(wave8)):
+                raise AssertionError("stored int16 waveforms differ from the clips")
+            reader = read_split(train_h5, load_waveform=True)
+            if reader.waveform.raw.dtype != np.int16 or not np.array_equal(
+                    reader.waveform.raw[:8], stored):
+                raise AssertionError("the port's reader does not give the int16 back")
+            print(f"[cli] pack_synthetic {CLI_TRAIN}/{CLI_TEST}/{CLI_EVAL} × 10 s in "
+                  f"{walls['pack_synthetic']:.3f} s: {st.b2} waveform kernel launches; "
+                  f"8 clips' features vs plain max |Δ| {err_pack:.3e} dB (limit 0.1, "
+                  "linear within rtol 2e-3); int16 waveforms read back bit for bit")
 
-        # 2. train the flagship over the device cache
-        torch.cuda.reset_peak_memory_stats()
-        with counted("train") as st:
-            run = cli.main(["train", f"--workspace={ws}", *CLI_ARGS,
-                            "--dtype=bf16", "--device_cache=on",
-                            f"--stop_iteration={CLI_STEPS}",
-                            f"--eval_interval={CLI_EVAL_INTERVAL}",
-                            f"--eval_max_iteration={CLI_EVAL_MAX}"])
-        peak = torch.cuda.max_memory_allocated()
-        n_evals = CLI_STEPS // CLI_EVAL_INTERVAL + 1
-        per_eval = min(CLI_EVAL_MAX, -(-CLI_TRAIN // CLI_BATCH)) + min(
-            CLI_EVAL_MAX, -(-CLI_TEST // CLI_BATCH))
-        want_b1 = CLI_STEPS + n_evals * per_eval
-        if st.b1 != want_b1 or st.b2:
-            raise AssertionError(f"train launched {st.b1} bank / {st.b2} waveform "
-                                 f"kernels, expected {want_b1} / 0")
-        if any(calls.values()):
-            raise AssertionError(f"plain frontend ran on the card: {calls}")
-        if run["loss"] is None or not np.isfinite(run["loss"]):
-            raise AssertionError(f"train loss {run['loss']}")
-        first_idx = list(seen["idx"])
-        ckpt_dir = os.path.join(ws, "checkpoints", "main", f"model_type={MODEL}",
-                                *CLI_RUN)
-        for it in (CLI_EVAL_INTERVAL, CLI_STEPS):
-            for ext in (".pth", ".optjson", ".datastate.pkl"):
-                if not os.path.isfile(os.path.join(ckpt_dir, f"{it}_iterations{ext}")):
-                    raise AssertionError(f"missing {it}_iterations{ext}")
-        stats_path = os.path.join(ws, "statistics", "main", f"model_type={MODEL}",
-                                  *CLI_RUN, "statistics.pickle")
-        with open(stats_path, "rb") as f:
-            records = pickle.load(f)
-        at_keys = {"average_precision", "mAP", "auc", "mAUC", "precision",
-                   "recall", "f1", "macro_f1", "macro_precision", "macro_recall",
-                   "thresholds"}
-        sed_keys = {"f_measure", "error_rate", "overall", "class_wise",
-                    "class_wise_average"}
-        if sorted(r["iteration"] for r in records) != sorted(
-                2 * list(range(0, CLI_STEPS + 1, CLI_EVAL_INTERVAL))):
-            raise AssertionError(f"statistics iterations {[r['iteration'] for r in records]}")
-        for r in records:
-            if set(r["at"]) != at_keys or (r["data_type"] == "test"
-                                           and set(r["sed"]) != sed_keys):
-                raise AssertionError(f"statistics schema: {sorted(r)}")
-        steady = [e for e in run["evals"] if e["train_clips_per_s"]]
-        print(f"[cli] train {MODEL} bf16 batch {CLI_BATCH}, device cache on, "
-              f"{CLI_STEPS} steps, evals at 0/{CLI_EVAL_INTERVAL}/{CLI_STEPS}: "
-              f"{walls['train']:.3f} s wall; loss {run['loss']:.5f}; bank kernel "
-              f"launches {st.b1} ({CLI_STEPS} steps + {n_evals}×{per_eval} bank "
-              f"eval steps), waveform 0, plain frontend calls 0; peak memory "
-              f"{peak / 2**20:.1f} MiB [{card}]")
-        for e in run["evals"]:
-            cps = e["train_clips_per_s"]
-            print(f"[cli] eval at iter {e['iteration']}: train "
-                  f"{e['train_time']:.3f} s since the last eval"
-                  f"{'' if cps is None else f' ({cps:.2f} clips/s)'}, eval + "
-                  f"checkpoint {e['eval_time']:.3f} s (checkpoint "
-                  f"{e['checkpoint_time']:.3f} s) [{card}]")
+            # 2. train the flagship over the device cache
+            torch.cuda.reset_peak_memory_stats()
+            with counted("train") as st:
+                run = cli.main(["train", f"--workspace={ws}", *CLI_ARGS,
+                                "--dtype=bf16", "--device_cache=on",
+                                f"--stop_iteration={CLI_STEPS}",
+                                f"--eval_interval={CLI_EVAL_INTERVAL}",
+                                f"--eval_max_iteration={CLI_EVAL_MAX}"])
+            peak = torch.cuda.max_memory_allocated()
+            n_evals = CLI_STEPS // CLI_EVAL_INTERVAL + 1
+            per_eval = min(CLI_EVAL_MAX, -(-CLI_TRAIN // CLI_BATCH)) + min(
+                CLI_EVAL_MAX, -(-CLI_TEST // CLI_BATCH))
+            want_b1 = CLI_STEPS + n_evals * per_eval
+            if st.b1 != want_b1 or st.b2:
+                raise AssertionError(f"train launched {st.b1} bank / {st.b2} waveform "
+                                     f"kernels, expected {want_b1} / 0")
+            if any(calls.values()):
+                raise AssertionError(f"plain frontend ran on the card: {calls}")
+            if run["loss"] is None or not np.isfinite(run["loss"]):
+                raise AssertionError(f"train loss {run['loss']}")
+            first_idx = list(seen["idx"])
+            ckpt_dir = os.path.join(ws, "checkpoints", "main", f"model_type={MODEL}",
+                                    *CLI_RUN)
+            for it in (CLI_EVAL_INTERVAL, CLI_STEPS):
+                for ext in (".pth", ".optjson", ".datastate.pkl"):
+                    if not os.path.isfile(os.path.join(ckpt_dir, f"{it}_iterations{ext}")):
+                        raise AssertionError(f"missing {it}_iterations{ext}")
+            stats_path = os.path.join(ws, "statistics", "main", f"model_type={MODEL}",
+                                      *CLI_RUN, "statistics.pickle")
+            with open(stats_path, "rb") as f:
+                records = pickle.load(f)
+            at_keys = {"average_precision", "mAP", "auc", "mAUC", "precision",
+                       "recall", "f1", "macro_f1", "macro_precision", "macro_recall",
+                       "thresholds"}
+            sed_keys = {"f_measure", "error_rate", "overall", "class_wise",
+                        "class_wise_average"}
+            if sorted(r["iteration"] for r in records) != sorted(
+                    2 * list(range(0, CLI_STEPS + 1, CLI_EVAL_INTERVAL))):
+                raise AssertionError(
+                    f"statistics iterations {[r['iteration'] for r in records]}")
+            for r in records:
+                if set(r["at"]) != at_keys or (r["data_type"] == "test"
+                                               and set(r["sed"]) != sed_keys):
+                    raise AssertionError(f"statistics schema: {sorted(r)}")
+            steady = [e for e in run["evals"] if e["train_clips_per_s"]]
+            print(f"[cli] train {MODEL} bf16 batch {CLI_BATCH}, device cache on, "
+                  f"{CLI_STEPS} steps, evals at 0/{CLI_EVAL_INTERVAL}/{CLI_STEPS}: "
+                  f"{walls['train']:.3f} s wall; loss {run['loss']:.5f}; bank kernel "
+                  f"launches {st.b1} ({CLI_STEPS} steps + {n_evals}×{per_eval} bank "
+                  f"eval steps), waveform 0, plain frontend calls 0; peak memory "
+                  f"{peak / 2**20:.1f} MiB [{card}]")
+            for e in run["evals"]:
+                cps = e["train_clips_per_s"]
+                print(f"[cli] eval at iter {e['iteration']}: train "
+                      f"{e['train_time']:.3f} s since the last eval"
+                      f"{'' if cps is None else f' ({cps:.2f} clips/s)'}, eval + "
+                      f"checkpoint {e['eval_time']:.3f} s (checkpoint "
+                      f"{e['checkpoint_time']:.3f} s) [{card}]")
 
-        # the same step in a bare loop at the same batch: what the CLI's own
-        # loop (prefetch thread, stream snapshots, λ draws) adds per step
-        bare_ms = _bare_step_ms(torch, cli, ws)
-        cli_ms = 1e3 * steady[-1]["train_time"] / CLI_EVAL_INTERVAL
-        print(f"[cli] the CLI's step (main._build) in a bare loop at batch "
-              f"{CLI_BATCH}: p50 {bare_ms:.3f} ms ({CLI_BATCH / bare_ms * 1e3:.2f} "
-              f"clips/s, CUDA events); the CLI loop between its last two evals "
-              f"{cli_ms:.3f} ms a step ({CLI_BATCH / cli_ms * 1e3:.2f} clips/s, "
-              f"host clock), {cli_ms / bare_ms:.4f}x the bare step [{card}]")
+            # the same step in a bare loop at the same batch: what the CLI's own
+            # loop (prefetch thread, stream snapshots, λ draws) adds per step
+            bare_ms = _bare_step_ms(torch, cli, ws)
+            cli_ms = 1e3 * steady[-1]["train_time"] / CLI_EVAL_INTERVAL
+            print(f"[cli] the CLI's step (main._build) in a bare loop at batch "
+                  f"{CLI_BATCH}: p50 {bare_ms:.3f} ms ({CLI_BATCH / bare_ms * 1e3:.2f} "
+                  f"clips/s, CUDA events); the CLI loop between its last two evals "
+                  f"{cli_ms:.3f} ms a step ({CLI_BATCH / cli_ms * 1e3:.2f} clips/s, "
+                  f"host clock), {cli_ms / bare_ms:.4f}x the bare step [{card}]")
 
-        # 3. resume from iteration 10 in a copy of the workspace
-        ws_r = os.path.join(root, "ws_resume")
-        shutil.copytree(ws, ws_r)
-        seen["idx"].clear()
-        with counted("resume"):
-            cli.main(["train", f"--workspace={ws_r}", *CLI_ARGS, "--dtype=bf16",
-                      "--device_cache=on", f"--resume_iteration={CLI_EVAL_INTERVAL}",
-                      f"--stop_iteration={CLI_EVAL_INTERVAL + 1}",
-                      "--eval_interval=1000"])
-        saved = torch.load(os.path.join(ckpt_dir, f"{CLI_EVAL_INTERVAL}_iterations.pth"),
-                           map_location="cpu", weights_only=True)
-        _tensors_equal(seen["loaded"], saved)
-        if not np.array_equal(seen["idx"][0], first_idx[CLI_EVAL_INTERVAL]):
-            raise AssertionError(f"resumed batch {seen['idx'][0]} vs the "
-                                 f"uninterrupted run's {first_idx[CLI_EVAL_INTERVAL]}")
-        print(f"[cli] resume from {CLI_EVAL_INTERVAL}_iterations.pth in "
-              f"{walls['resume']:.3f} s: parameters, BatchNorm statistics, Adam "
-              "state, dropout and mixup generators and step equal the "
-              "checkpoint's; the next batch equals the uninterrupted run's "
-              f"step {CLI_EVAL_INTERVAL}")
+            # 3. resume from iteration 10 in a copy of the workspace
+            ws_r = os.path.join(root, "ws_resume")
+            shutil.copytree(ws, ws_r)
+            seen["idx"].clear()
+            with counted("resume"):
+                cli.main(["train", f"--workspace={ws_r}", *CLI_ARGS, "--dtype=bf16",
+                          "--device_cache=on", f"--resume_iteration={CLI_EVAL_INTERVAL}",
+                          f"--stop_iteration={CLI_EVAL_INTERVAL + 1}",
+                          "--eval_interval=1000"])
+            saved = torch.load(os.path.join(ckpt_dir, f"{CLI_EVAL_INTERVAL}_iterations.pth"),
+                               map_location="cpu", weights_only=True)
+            _tensors_equal(seen["loaded"], saved)
+            if not np.array_equal(seen["idx"][0], first_idx[CLI_EVAL_INTERVAL]):
+                raise AssertionError(f"resumed batch {seen['idx'][0]} vs the "
+                                     f"uninterrupted run's {first_idx[CLI_EVAL_INTERVAL]}")
+            print(f"[cli] resume from {CLI_EVAL_INTERVAL}_iterations.pth in "
+                  f"{walls['resume']:.3f} s: parameters, BatchNorm statistics, Adam "
+                  "state, dropout and mixup generators and step equal the "
+                  "checkpoint's; the next batch equals the uninterrupted run's "
+                  f"step {CLI_EVAL_INTERVAL}")
 
-        # 4. one f32 step from that checkpoint through either transport
-        losses = {}
-        for mode in ("on", "off"):
-            ws_t = os.path.join(root, f"ws_{mode}")
-            shutil.copytree(ws, ws_t)
-            with counted(f"step_cache_{mode}") as st:
-                losses[mode] = cli.main(
-                    ["train", f"--workspace={ws_t}", *CLI_ARGS, "--dtype=f32",
-                     f"--device_cache={mode}",
-                     f"--resume_iteration={CLI_EVAL_INTERVAL}",
-                     f"--stop_iteration={CLI_EVAL_INTERVAL + 1}",
-                     "--eval_interval=1000"])["loss"]
-            want = (1, 0) if mode == "on" else (0, 1)
-            if (st.b1, st.b2) != want:
-                raise AssertionError(f"device cache {mode}: {st.b1} bank / "
-                                     f"{st.b2} waveform launches, expected {want}")
-            shutil.rmtree(ws_t)
-        rel = abs(losses["on"] - losses["off"]) / abs(losses["off"])
-        print(f"[cli] one f32 step from iteration {CLI_EVAL_INTERVAL}: loss "
-              f"{losses['on']:.7f} through the bank kernel, {losses['off']:.7f} "
-              f"through host-fed int16 batches and the waveform kernel (rel "
-              f"{rel:.3e}, limit 1e-5)")
-        if not rel <= 1e-5:
-            raise AssertionError("the two transports disagree")
+            # 4. one f32 step from that checkpoint through either transport
+            losses = {}
+            for mode in ("on", "off"):
+                ws_t = os.path.join(root, f"ws_{mode}")
+                shutil.copytree(ws, ws_t)
+                with counted(f"step_cache_{mode}") as st:
+                    losses[mode] = cli.main(
+                        ["train", f"--workspace={ws_t}", *CLI_ARGS, "--dtype=f32",
+                         f"--device_cache={mode}",
+                         f"--resume_iteration={CLI_EVAL_INTERVAL}",
+                         f"--stop_iteration={CLI_EVAL_INTERVAL + 1}",
+                         "--eval_interval=1000"])["loss"]
+                want = (1, 0) if mode == "on" else (0, 1)
+                if (st.b1, st.b2) != want:
+                    raise AssertionError(f"device cache {mode}: {st.b1} bank / "
+                                         f"{st.b2} waveform launches, expected {want}")
+                shutil.rmtree(ws_t)
+            rel = abs(losses["on"] - losses["off"]) / abs(losses["off"])
+            print(f"[cli] one f32 step from iteration {CLI_EVAL_INTERVAL}: loss "
+                  f"{losses['on']:.7f} through the bank kernel, {losses['off']:.7f} "
+                  f"through host-fed int16 batches and the waveform kernel (rel "
+                  f"{rel:.3e}, limit 1e-5)")
+            if not rel <= 1e-5:
+                raise AssertionError("the two transports disagree")
 
-        # 5. inference, threshold searches and metrics
-        for data_type in ("testing", "evaluation"):
-            with counted(f"inference_{data_type}") as st:
-                cli.main(["inference", f"--workspace={ws}", *CLI_ARGS,
-                          "--dtype=bf16", f"--data_type={data_type}"])
-            if st.b2 != 1 or st.b1:
-                raise AssertionError(f"inference {data_type}: {st.b2} waveform / "
-                                     f"{st.b1} bank launches, expected 1 / 0")
-        for stage in ("optimize_at_thresholds", "optimize_sed_thresholds"):
-            with counted(stage):
-                cli.main([stage, f"--workspace={ws}", *CLI_ARGS])
-        metrics_json = os.path.join(root, "metrics.json")
-        with counted("calculate_metrics"):
-            cli.main(["calculate_metrics", f"--workspace={ws}", *CLI_ARGS,
-                      "--use_optimized_thresholds", f"--metrics_out={metrics_json}"])
-        with open(metrics_json) as f:
-            metrics = json.load(f)
-        sub = os.path.join(ws, "_submissions", "main", f"model_type={MODEL}",
-                           *CLI_RUN, "testing_submission.csv")
-        if not os.path.isfile(sub) or metrics["n_clips"] != CLI_TEST:
-            raise AssertionError("calculate_metrics wrote no submission or "
-                                 "the wrong clip count")
-        print(f"[cli] inference testing/evaluation {walls['inference_testing']:.3f}"
-              f" / {walls['inference_evaluation']:.3f} s (1 waveform kernel launch "
-              f"each); optimize_at_thresholds {walls['optimize_at_thresholds']:.3f}"
-              f" s; optimize_sed_thresholds {walls['optimize_sed_thresholds']:.3f} s "
-              f"(numpy search: {CLI_TEST}×1001×17 < 2M); calculate_metrics "
-              f"{walls['calculate_metrics']:.3f} s: mAP {metrics['at']['mAP']:.4f}, "
-              f"segment F1 {metrics['sed']['overall']['f_measure']['f_measure']:.4f}")
+            # 5. inference, threshold searches and metrics
+            for data_type in ("testing", "evaluation"):
+                with counted(f"inference_{data_type}") as st:
+                    cli.main(["inference", f"--workspace={ws}", *CLI_ARGS,
+                              "--dtype=bf16", f"--data_type={data_type}"])
+                if st.b2 != 1 or st.b1:
+                    raise AssertionError(f"inference {data_type}: {st.b2} waveform / "
+                                         f"{st.b1} bank launches, expected 1 / 0")
+            for stage in ("optimize_at_thresholds", "optimize_sed_thresholds"):
+                with counted(stage):
+                    cli.main([stage, f"--workspace={ws}", *CLI_ARGS])
+            metrics_json = os.path.join(root, "metrics.json")
+            with counted("calculate_metrics"):
+                cli.main(["calculate_metrics", f"--workspace={ws}", *CLI_ARGS,
+                          "--use_optimized_thresholds", f"--metrics_out={metrics_json}"])
+            with open(metrics_json) as f:
+                metrics = json.load(f)
+            sub = os.path.join(ws, "_submissions", "main", f"model_type={MODEL}",
+                               *CLI_RUN, "testing_submission.csv")
+            if not os.path.isfile(sub) or metrics["n_clips"] != CLI_TEST:
+                raise AssertionError("calculate_metrics wrote no submission or "
+                                     "the wrong clip count")
+            print(f"[cli] inference testing/evaluation {walls['inference_testing']:.3f}"
+                  f" / {walls['inference_evaluation']:.3f} s (1 waveform kernel launch "
+                  f"each); optimize_at_thresholds {walls['optimize_at_thresholds']:.3f}"
+                  f" s; optimize_sed_thresholds {walls['optimize_sed_thresholds']:.3f} s "
+                  f"(numpy search: {CLI_TEST}×1001×17 < 2M); calculate_metrics "
+                  f"{walls['calculate_metrics']:.3f} s: mAP {metrics['at']['mAP']:.4f}, "
+                  f"segment F1 {metrics['sed']['overall']['f_measure']['f_measure']:.4f}")
 
-        # 6. the device segment scorer against the numpy oracle
-        pred_dir = os.path.join(ws, "predictions", "main", f"model_type={MODEL}",
-                                *CLI_RUN)
-        with open(os.path.join(pred_dir, "testing.pickle"), "rb") as f:
-            preds = pickle.load(f)
-        fw, names = preds["framewise_output"], preds["audio_name"]
-        gt = scoring.read_ground_truth(os.path.join(
-            ws, "synth_dataset", "metadata", "groundtruth_strong_label_testing_set.csv"))
-        scorer = sed_fast.DeviceSegmentScorer(fw, names, gt, labels, 100)
-        if scorer.device.type != "cuda":
-            raise AssertionError(f"the scorer resolved to {scorer.device}")
-        rng = np.random.default_rng(8)
-        lo_q, hi_q = np.quantile(fw, [0.3, 0.99])
-        times = []
-        for _ in range(20):
-            high = rng.uniform(lo_q, hi_q, len(labels))
-            low = high * rng.uniform(0.3, 1.0, len(labels))
-            n_smooth, n_salt = (int(v) for v in rng.integers(1, 21, 2))
-            t0 = time.perf_counter()
-            counts = scorer.segment_counts(high, low, n_smooth, n_salt)
-            times.append(time.perf_counter() - t0)
-            events = sed.events_from_binary(
-                sed.binarize(fw, high, low, n_smooth, n_salt), 100, labels)
-            m = scoring.segment_based_metrics(
-                gt, {names[i]: events[i] for i in range(len(names))}, 10.0, 1.0,
-                labels)
-            want = tuple(int(sum(cw[k] for cw in m["class_wise"].values()))
-                         for k in ("ntp", "nfp", "nfn"))
-            if counts != want:
-                raise AssertionError(f"device scorer counts {counts}, numpy {want}")
-        print(f"[cli] sed_fast.DeviceSegmentScorer on the card over {len(names)}"
-              f"×1001×17 predictions: 20 random parameter sets, integer counts "
-              f"== the numpy oracle's; {1e3 * np.median(times):.3f} ms per score "
-              f"(median; first {1e3 * times[0]:.3f} ms) [{card}]")
-        _full_size_search(torch, cfg, labels, card)
+            # 6. the device segment scorer against the numpy oracle
+            pred_dir = os.path.join(ws, "predictions", "main", f"model_type={MODEL}",
+                                    *CLI_RUN)
+            with open(os.path.join(pred_dir, "testing.pickle"), "rb") as f:
+                preds = pickle.load(f)
+            fw, names = preds["framewise_output"], preds["audio_name"]
+            gt = scoring.read_ground_truth(os.path.join(
+                ws, "synth_dataset", "metadata", "groundtruth_strong_label_testing_set.csv"))
+            scorer = sed_fast.DeviceSegmentScorer(fw, names, gt, labels, 100)
+            if scorer.device.type != "cuda":
+                raise AssertionError(f"the scorer resolved to {scorer.device}")
+            rng = np.random.default_rng(8)
+            lo_q, hi_q = np.quantile(fw, [0.3, 0.99])
+            times = []
+            for _ in range(20):
+                high = rng.uniform(lo_q, hi_q, len(labels))
+                low = high * rng.uniform(0.3, 1.0, len(labels))
+                n_smooth, n_salt = (int(v) for v in rng.integers(1, 21, 2))
+                t0 = time.perf_counter()
+                counts = scorer.segment_counts(high, low, n_smooth, n_salt)
+                times.append(time.perf_counter() - t0)
+                events = sed.events_from_binary(
+                    sed.binarize(fw, high, low, n_smooth, n_salt), 100, labels)
+                m = scoring.segment_based_metrics(
+                    gt, {names[i]: events[i] for i in range(len(names))}, 10.0, 1.0,
+                    labels)
+                want = tuple(int(sum(cw[k] for cw in m["class_wise"].values()))
+                             for k in ("ntp", "nfp", "nfn"))
+                if counts != want:
+                    raise AssertionError(f"device scorer counts {counts}, numpy {want}")
+            print(f"[cli] sed_fast.DeviceSegmentScorer on the card over {len(names)}"
+                  f"×1001×17 predictions: 20 random parameter sets, integer counts "
+                  f"== the numpy oracle's; {1e3 * np.median(times):.3f} ms per score "
+                  f"(median; first {1e3 * times[0]:.3f} ms) [{card}]")
+            _full_size_search(torch, cfg, labels, card)
 
-        # 7. serve the best checkpoint
-        run_config = "/".join(CLI_RUN)
-        wave = _request(cfg, BATCH, 9)
-        with counted("from_workspace") as st:
-            pred = serving.Predictor.from_workspace(ws, MODEL, run_config,
-                                                    iteration="best")
-            out = pred(wave)
-        if st.b2 != 1 or pred.device.type != "cuda":
-            raise AssertionError(f"from_workspace: {st.b2} launches on {pred.device}")
-        best_it = int(sedt.utils.statistics.best_iteration(stats_path)[0])
-        model_cpu = checkpoints.load_model(
-            os.path.join(ckpt_dir, f"{best_it}_iterations.pth"),
-            sedt.get_model(MODEL))
+            # 7. serve the best checkpoint
+            run_config = "/".join(CLI_RUN)
+            wave = _request(cfg, BATCH, 9)
+            with counted("from_workspace") as st:
+                pred = serving.Predictor.from_workspace(ws, MODEL, run_config,
+                                                        iteration="best")
+                out = pred(wave)
+            if st.b2 != 1 or pred.device.type != "cuda":
+                raise AssertionError(f"from_workspace: {st.b2} launches on {pred.device}")
+            best_it = int(sedt.utils.statistics.best_iteration(stats_path)[0])
+            model_cpu = checkpoints.load_model(
+                os.path.join(ckpt_dir, f"{best_it}_iterations.pth"),
+                sedt.get_model(MODEL))
     finally:
-        for k in plain:
-            setattr(stft, k, plain[k])
         train.make_train_step, checkpoints.load_checkpoint = make_train_step, load_checkpoint
     ref = serving.Predictor(model_cpu, cfg, scalar=sedt.data.load_scalar(
         os.path.join(ws, "scalars", "training.h5")), sed_params=pred.sed_params,
@@ -1333,9 +1343,313 @@ def phase_cli(torch, sedt, card):
         f"{k} {v:.3f}" for k, v in walls.items()) + f" [{card}]")
     print(f"[cli] launches in the phase: bank kernel {launches['logmel_bank']}, "
           f"waveform kernel {launches['logmel']}")
-    shutil.rmtree(root)
+    return launches, ws
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the rest of the zoo
+# ---------------------------------------------------------------------------
+ZOO = ("Cnn_9layers_Glu_AttPooling", "Cnn_9layers_Transformer_FrameAtt")
+ZOO_STEPS = 10
+ZOO_CLI_STEPS = 5
+
+
+def _zoo_model(torch, name, dtype, dropout=0.2, remat=False):
+    """``name`` at full width from seed 0 (the same weights whatever
+    ``dtype``, ``dropout`` and ``remat``); ``dropout=0`` also zeroes the
+    Transformer layers' own rate."""
+    from sound_event_detection_dcase2017_task4_torch.models import (
+        MODEL_REGISTRY, SedCnn)
+
+    model = SedCnn(dtype=dtype, dropout=dropout, remat=remat,
+                   generator=torch.Generator().manual_seed(0),
+                   **MODEL_REGISTRY[name])
+    if dropout == 0.0:
+        for layer in model.transformer or ():
+            layer.dropout = 0.0
+    return model
+
+
+def _calibrate(torch, model, feats):
+    """Set every BatchNorm's running statistics to those of ``feats`` (one
+    train-mode forward with momentum 0, on the card). At its seed
+    statistics (mean 0, var 1) the gated GLU stack shrinks the signal to
+    ~1e-5 of the probabilities by the head, so its outputs would hardly
+    depend on the input."""
+    from sound_event_detection_dcase2017_task4_torch.models.blocks import BatchNorm
+
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.momentum = 0.0
+    with torch.no_grad():
+        model.cuda()(feats, train=True,
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    for bn in bns:
+        bn.momentum = 0.9
+
+
+def _zoo_serve(torch, sedt, card, name, wave, scalar):
+    """A Predictor of ``name`` on the card in f32 and bf16; returns the
+    waveform kernel launches of its main path. The GLU serves with
+    BatchNorm statistics calibrated on the request (:func:`_calibrate`);
+    either model's clipwise outputs must spread over the request's clips."""
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+
+    cfg = sedt.config.DEFAULT
+    model = _zoo_model(torch, name, torch.float32, 0.0)
+    if model.block == "glu":
+        mean, std = (torch.from_numpy(a).cuda() for a in scalar)
+        _calibrate(torch, model,
+                   (stft.logmel(torch.from_numpy(wave).cuda(), cfg) - mean) / std)
+    cpu_model = copy.deepcopy(model).cpu()
+    n_params = sum(p.numel() for p in model.parameters())
+    pred = sedt.Predictor(model, cfg, scalar=scalar)
+    model16 = _zoo_model(torch, name, torch.bfloat16, 0.0)
+    model16.load_state_dict(model.state_dict())
+    pred16 = sedt.Predictor(model16, cfg, scalar=scalar)
+    if (pred.device.type, pred16.device.type) != ("cuda", "cuda"):
+        raise AssertionError(f"Predictor resolved to {pred.device}")
+    calls = 2 + 2 * 23                       # 2 checked + 2 × (3 + 20) timed
+    # ---- the main path: counters zeroed just before, read just after ----
+    with _PlainGuard(torch, cfg) as guard:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        out = pred(wave)
+        lat32 = _p50_latency(pred, wave)
+        mem = torch.cuda.max_memory_allocated()
+        out16 = pred16(wave)
+        lat16 = _p50_latency(pred16, wave)
+        torch.cuda.synchronize()
+        launches, bank_launches = logmel_cuda.LAUNCHES, logmel_cuda.BANK_LAUNCHES
+    # ----------------------------------------------------------------------
+    if launches != calls or bank_launches:
+        raise AssertionError(f"{name} serving: {launches} waveform / "
+                             f"{bank_launches} bank launches for {calls} requests")
+    if any(guard.calls.values()):
+        raise AssertionError(f"plain frontend ran on the card: {guard.calls}")
+    _check_outputs(out, BATCH, cfg)
+    _check_outputs(out16, BATCH, cfg)
+    ref = sedt.Predictor(cpu_model, cfg, scalar=scalar, device="cpu")(wave[:2])
+    d_cpu = max(float(np.abs(ref[k] - out[k][:2]).max())
+                for k in ("clipwise_output", "framewise_output"))
+    d16 = max(float(np.abs(out16[k] - out[k]).max())
+              for k in ("clipwise_output", "framewise_output"))
+    clip = out["clipwise_output"]
+    spread = float((clip.max(0) - clip.min(0)).max())
+    print(f"[zoo] {name} ({n_params} params) serves {BATCH}×10 s on the card: "
+          f"{launches} waveform kernel launches for {calls} requests, plain "
+          f"frontend calls 0; clipwise spread over the clips {spread:.3e} "
+          f"(at least 1e-2); card vs CPU (2 clips, f32) max |Δ| {d_cpu:.3e} "
+          f"(limit 1e-4); bf16 vs f32 max |Δ| {d16:.3e} (limit {BF16_ATOL})")
+    if not spread >= 1e-2:
+        raise AssertionError(f"{name}: the outputs hardly depend on the input")
+    if not d_cpu <= 1e-4:
+        raise AssertionError(f"{name}: card and CPU disagree")
+    if not d16 <= BF16_ATOL:
+        raise AssertionError(f"{name}: the bf16 model strays from the f32 one")
+    print(f"[zoo] {name} request {BATCH}×10 s p50 latency: f32 {lat32:.3f} ms "
+          f"({BATCH / lat32 * 1e3:.2f} clips/s), bf16 {lat16:.3f} ms "
+          f"({BATCH / lat16 * 1e3:.2f} clips/s); peak memory (f32) "
+          f"{mem / 2**20:.1f} MiB [{card}]")
     return launches
 
+
+def _zoo_train(torch, sedt, card, name, bank, targets, scale, scalar, remat,
+               profile):
+    """``ZOO_STEPS`` bf16 steps of ``name`` at batch 128 over the bank with
+    SpecAugment and mixup; returns the bank kernel launches, the p50 step
+    time and the peak memory."""
+    from sound_event_detection_dcase2017_task4_torch import train
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+
+    cfg = sedt.config.DEFAULT
+    model = _zoo_model(torch, name, torch.bfloat16, remat=remat)
+    state = train.create_train_state(model, cfg, seed=0)    # device → cuda
+    bank_fn = stft.make_logmel_bank_fn(cfg, precision="fast", wave_scale=scale)
+    step = train.make_train_step(
+        model, state, scalar=scalar, mixup_alpha=1.0, use_spec_augment=True,
+        check_numerics=True, bank=bank, wave_scale=scale, bank_frontend=bank_fn)
+    sampler = np.random.default_rng(6)
+    batches = [np.sort(sampler.choice(BANK_CLIPS, TRAIN_BATCH, replace=False))
+               for _ in range(ZOO_STEPS + 2)]
+    # ---- the main path: counters zeroed just before, read just after ----
+    with _PlainGuard(torch, cfg) as guard:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(ZOO_STEPS + 1)]
+        metrics = []
+        marks[0].record()
+        for i in range(ZOO_STEPS):
+            metrics.append(step(batches[i], targets[batches[i]]))
+            marks[i + 1].record()
+        torch.cuda.synchronize()
+        launches, waveform = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+        peak = torch.cuda.max_memory_allocated()
+    # ----------------------------------------------------------------------
+    losses = [float(m["loss"]) for m in metrics]
+    bad = sum(int(m["nonfinite_count"]) for m in metrics)
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(ZOO_STEPS)]
+    if launches != ZOO_STEPS or waveform:
+        raise AssertionError(f"{name} training: {launches} bank / {waveform} "
+                             f"waveform launches for {ZOO_STEPS} steps")
+    if any(guard.calls.values()):
+        raise AssertionError(f"plain frontend ran on the card: {guard.calls}")
+    if not np.isfinite(losses).all() or bad:
+        raise AssertionError(f"{name}: non-finite training {losses}, {bad}")
+    p50 = float(np.median(step_ms))
+    tag = "remat on" if remat else "remat off"
+    print(f"[zoo] {name} bf16 train, batch {TRAIN_BATCH} over the bank, "
+          f"SpecAugment + mixup α=1, {tag}: {ZOO_STEPS} steps, bank kernel "
+          f"launches {launches}, plain frontend calls 0, loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}")
+    print(f"[zoo] {name} {tag}: step time p50 {p50:.3f} ms (CUDA events; min "
+          f"{min(step_ms):.3f}, max {max(step_ms):.3f}, first {step_ms[0]:.3f}),"
+          f" {TRAIN_BATCH / p50 * 1e3:.2f} clips/s; peak memory "
+          f"{peak / 2**20:.1f} MiB [{card}]")
+    if profile:
+        i = ZOO_STEPS
+        wall_ms, rows = _device_kernels(
+            torch, lambda: step(batches[i], targets[batches[i]]))
+        busy = sum(r[0] for r in rows)
+        print(f"[zoo-profile] {name} one bf16 train step: device time "
+              f"{busy:.4f} ms in {len(rows)} kernels/copies, {wall_ms:.3f} ms "
+              f"wall under the profiler; idle ≈ "
+              f"{100 * max(0.0, 1 - busy / p50):.1f}% of the p50 step")
+        for ms, count, key in rows[:10]:
+            print(f"[zoo-profile] {ms:9.4f} ms {count:5d}x  {key[:110]}")
+        _, ops = _device_kernels(
+            torch, lambda: step(batches[i + 1], targets[batches[i + 1]]),
+            by_op=True)
+        for ms, count, key in ops[:12]:
+            print(f"[zoo-profile-op] {ms:9.4f} ms {count:5d}x  {key[:90]}")
+    del step, state, model
+    torch.cuda.empty_cache()
+    return launches, p50, peak
+
+
+def _steps_agree(a, b, what):
+    """Raise unless two ``_one_step`` results agree at the ground-rule
+    tolerances (loss rtol 2e-5, grad-norm 1e-4, BN statistics rtol 1e-4 /
+    atol 1e-5)."""
+    d_loss = abs(a[0] - b[0]) / abs(b[0])
+    d_norm = abs(a[1] - b[1]) / abs(b[1])
+    d_stats = max(float(((a[2][k] - b[2][k]).abs()
+                         / (1e-5 + 1e-4 * b[2][k].abs())).max()) for k in b[2])
+    print(f"[zoo] {what}: loss {a[0]:.7f} vs {b[0]:.7f} (rel {d_loss:.3e}, limit "
+          f"2e-5), grad-norm {a[1]:.6f} vs {b[1]:.6f} (rel {d_norm:.3e}, limit "
+          f"1e-4), BN running statistics at {d_stats:.3f} of rtol 1e-4 / atol 1e-5")
+    if not (d_loss <= 2e-5 and d_norm <= 1e-4 and d_stats <= 1.0):
+        raise AssertionError(f"{what}: the steps disagree")
+
+
+def _zoo_cli(torch, sedt, card, ws):
+    """``main train`` of the Transformer with SpecAugment, mixup and
+    ``--remat`` in phase 8's workspace, then ``inference``; returns the
+    launches of both kernels."""
+    from sound_event_detection_dcase2017_task4_torch import main as cli
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
+
+    cfg = sedt.config.DEFAULT
+    name = ZOO[1]
+    args = [f"--model_type={name}", "--feature_source=waveform",
+            "--augmentation=mixup_specaugment", f"--batch_size={CLI_BATCH}",
+            "--dtype=bf16"]
+    run_dir = (f"model_type={name}", "loss_type=clip_bce",
+               "augmentation=mixup_specaugment", f"batch_size={CLI_BATCH}")
+    per_eval = min(CLI_EVAL_MAX, -(-CLI_TRAIN // CLI_BATCH)) + min(
+        CLI_EVAL_MAX, -(-CLI_TEST // CLI_BATCH))
+    with _PlainGuard(torch, cfg) as guard:
+        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        t0 = time.perf_counter()
+        run = cli.main(["train", f"--workspace={ws}", *args, "--remat",
+                        "--device_cache=on", f"--stop_iteration={ZOO_CLI_STEPS}",
+                        f"--eval_interval={ZOO_CLI_STEPS}",
+                        f"--eval_max_iteration={CLI_EVAL_MAX}"])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        train_b1, train_b2 = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        t0 = time.perf_counter()
+        cli.main(["inference", f"--workspace={ws}", *args, "--data_type=testing"])
+        torch.cuda.synchronize()
+        t_inf = time.perf_counter() - t0
+        inf_b1, inf_b2 = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+    want_b1 = ZOO_CLI_STEPS + 2 * per_eval
+    if (train_b1, train_b2, inf_b1, inf_b2) != (want_b1, 0, 0, 1):
+        raise AssertionError(f"CLI launches: train {train_b1} bank / {train_b2} "
+                             f"waveform (expected {want_b1} / 0), inference "
+                             f"{inf_b1} / {inf_b2} (expected 0 / 1)")
+    if any(guard.calls.values()):
+        raise AssertionError(f"plain frontend ran on the card: {guard.calls}")
+    if run["loss"] is None or not np.isfinite(run["loss"]):
+        raise AssertionError(f"train loss {run['loss']}")
+    ckpt_dir = os.path.join(ws, "checkpoints", "main", *run_dir)
+    with open(os.path.join(ckpt_dir, f"{ZOO_CLI_STEPS}_iterations.optjson")) as f:
+        recipe = json.load(f)
+    if recipe != {"learning_rate": 1e-3, "warmup_steps": 500, "grad_clip": 1.0}:
+        raise AssertionError(f"the Transformer's recipe: {recipe}")
+    with open(os.path.join(ws, "predictions", "main", *run_dir,
+                           "testing.pickle"), "rb") as f:
+        preds = pickle.load(f)
+    c = preds["clipwise_output"]
+    if c.shape != (CLI_TEST, cfg.classes_num) or not np.isfinite(c).all():
+        raise AssertionError(f"inference predictions {c.shape}")
+    print(f"[zoo] main train {name} --augmentation=mixup_specaugment --remat, "
+          f"bf16 batch {CLI_BATCH}, {ZOO_CLI_STEPS} steps with evals at 0 and "
+          f"{ZOO_CLI_STEPS}: {t_train:.3f} s, loss {run['loss']:.5f}, recipe "
+          f"{recipe}; bank kernel launches {train_b1} ({ZOO_CLI_STEPS} steps + "
+          f"2×{per_eval} eval steps); inference testing {t_inf:.3f} s, 1 "
+          f"waveform launch; plain frontend calls 0 [{card}]")
+    return {"logmel": train_b2 + inf_b2, "logmel_bank": train_b1 + inf_b1}
+
+
+def phase_zoo(torch, sedt, card, bank, targets, scale, ws):
+    """Phase 9 (see the module docstring). Returns the launches of both
+    kernels in the phase."""
+    cfg = sedt.config.DEFAULT
+    rng = np.random.default_rng(1)
+    serve_scalar = (rng.normal(-30.0, 5.0, cfg.mel_bins).astype(np.float32),
+                    rng.normal(15.0, 2.0, cfg.mel_bins).astype(np.float32))
+    train_scalar = (np.full(cfg.mel_bins, -30.0, np.float32),
+                    np.full(cfg.mel_bins, 15.0, np.float32))
+    wave = _request(cfg, BATCH, 10)
+    launches = {"logmel": 0, "logmel_bank": 0}
+    summary = []
+    for name in ZOO:
+        launches["logmel"] += _zoo_serve(torch, sedt, card, name, wave,
+                                         serve_scalar)
+        for remat in ((False, True) if name == ZOO[0] else (False,)):
+            b1, p50, peak = _zoo_train(torch, sedt, card, name, bank, targets,
+                                       scale, train_scalar, remat,
+                                       profile=not remat)
+            launches["logmel_bank"] += b1
+            summary.append((name, remat, p50, peak))
+        # f32, every dropout 0, 2 clips: the card against the CPU
+        idx2 = np.array([5, 77])
+        y2 = targets[idx2]
+        gpu = _one_step(torch, sedt, cfg, _zoo_model(torch, name, torch.float32, 0.0),
+                        "cuda", bank, idx2, y2, train_scalar, scale)
+        cpu = _one_step(torch, sedt, cfg, _zoo_model(torch, name, torch.float32, 0.0),
+                        "cpu", bank[torch.from_numpy(idx2).cuda()].cpu(),
+                        np.arange(2), y2, train_scalar, scale)
+        _steps_agree(gpu, cpu, f"{name} f32 step, card vs CPU, 2 clips")
+        if name == ZOO[0]:
+            rem = _one_step(torch, sedt, cfg,
+                            _zoo_model(torch, name, torch.float32, 0.0, remat=True),
+                            "cuda", bank, idx2, y2, train_scalar, scale)
+            _steps_agree(rem, gpu, f"{name} f32 step on the card, remat on vs off")
+    cli = _zoo_cli(torch, sedt, card, ws)
+    for k in launches:
+        launches[k] += cli[k]
+    for name, remat, p50, peak in summary:
+        print(f"[zoo] summary {name} remat={'on' if remat else 'off'}: train p50 "
+              f"{p50:.3f} ms, {TRAIN_BATCH / p50 * 1e3:.2f} clips/s, peak "
+              f"{peak / 2**20:.1f} MiB [{card}]")
+    print(f"[zoo] launches in the phase: bank kernel {launches['logmel_bank']}, "
+          f"waveform kernel {launches['logmel']}")
+    return launches
 
 
 def main() -> int:
@@ -1356,10 +1670,17 @@ def main() -> int:
     bank_kernel, bank, targets, scale = phase_bank_kernel(torch, sedt, card)
     bank_kernel["launches"] = phase_train(torch, sedt, card, bank, targets,
                                           scale)
+    root = tempfile.mkdtemp(prefix="sedx_cli_")
+    try:
+        cli, ws = phase_cli(torch, sedt, card, root)
+        zoo = phase_zoo(torch, sedt, card, bank, targets, scale, ws)
+    finally:
+        shutil.rmtree(root)
     del bank
-    cli = phase_cli(torch, sedt, card)
     kernel["launches_cli"] = cli["logmel"]
     bank_kernel["launches_cli"] = cli["logmel_bank"]
+    kernel["launches_zoo"] = zoo["logmel"]
+    bank_kernel["launches_zoo"] = zoo["logmel_bank"]
     forbidden = [m for m in ("jax", "flax", "optax", "h5py", "sklearn",
                              "msgpack",
                              "sound_event_detection_dcase2017_task4_tpu")

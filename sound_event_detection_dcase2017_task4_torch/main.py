@@ -32,9 +32,11 @@ device. ``--no_pallas`` selects the plain PyTorch frontend
 (``ops/stft.logmel`` / ``logmel_bank``) because the user asked for it;
 nothing selects it otherwise.
 
-Not ported: ``runtime.enable_compile_cache`` (JAX's compilation cache; eager
-PyTorch compiles nothing ahead of the step), ``--remat`` and
-``specaugment`` (ROADMAP A10, whose ``NotImplementedError`` passes through).
+Every model of the registry trains, infers and serves; ``--remat``
+recomputes each conv or GLU block in the backward, and
+``--augmentation=specaugment|mixup_specaugment`` masks the normalised
+log-mel in the step. Not ported: ``runtime.enable_compile_cache`` (JAX's
+compilation cache; eager PyTorch compiles nothing ahead of the step).
 """
 
 from __future__ import annotations
@@ -172,10 +174,9 @@ def _build(args, for_train: bool):
                         batch_size=args.batch_size, scalar=scalar,
                         seed=args.seed, feature_source=feature_source)
 
-    if getattr(args, "remat", False):
-        raise NotImplementedError("--remat is not ported yet (ROADMAP A10)")
     dtype = torch.bfloat16 if getattr(args, "dtype", "f32") == "bf16" else torch.float32
     model = get_model(args.model_type, classes_num, dtype=dtype,
+                      remat=getattr(args, "remat", False),
                       generator=torch.Generator().manual_seed(args.seed))
     # the frontend describes the corpus's actual clip length (packed
     # corpora may be shorter than 10 s, as in the tests): the bank's chunk
@@ -735,7 +736,10 @@ def _add_common(sp):
     sp.add_argument("--dtype", default="f32", choices=["f32", "bf16"],
                     help="model compute dtype (params stay f32)")
     sp.add_argument("--remat", action="store_true",
-                    help="not ported yet (ROADMAP A10)")
+                    help="recompute each conv/GLU block's activations in "
+                         "the backward (torch.utils.checkpoint): less "
+                         "activation memory for one more forward of the "
+                         "blocks; checkpoints are the same either way")
     sp.add_argument("--lazy_data", action="store_true",
                     help="read batches from the HDF5 files through memmaps "
                          "instead of loading the splits into RAM")

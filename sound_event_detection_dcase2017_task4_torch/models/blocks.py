@@ -1,7 +1,8 @@
 """Shared model building blocks (PyTorch, NCHW inside, bf16-capable).
 
 Counterpart of ``sound_event_detection_dcase2017_task4_tpu/models/blocks.py``
-(reference: ``pytorch/models.py:{init_layer,init_bn,ConvBlock,AttBlock}``).
+(reference: ``pytorch/models.py:{init_layer,init_bn,ConvBlock,AttBlock}`` and
+the GLU block of the gated-CNN variant).
 
 * Inside, activations are NCHW ``[B, C, T, F]`` (the JAX package is NHWC);
   the model's public boundary keeps the JAX layout (``models/zoo.py``).
@@ -11,15 +12,20 @@ Counterpart of ``sound_event_detection_dcase2017_task4_tpu/models/blocks.py``
   takes batch statistics (biased variance, running statistics updated in
   place with momentum 0.9) and ``Dropout`` draws its mask from an explicit
   ``torch.Generator``.
+* ``LayerNorm`` is flax's (epsilon 1e-6, float32 statistics by
+  E[x²] − E[x]², result in the compute type), not ``torch.nn.LayerNorm``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ConvBlock", "AttBlock", "BatchNorm", "Dropout", "Dense",
+__all__ = ["ConvBlock", "GLUBlock", "AttBlock", "BatchNorm", "LayerNorm",
+           "Dropout", "dropout", "Dense", "LecunDense", "frozen_statistics",
            "interpolate", "pad_framewise_output", "frames_after_pooling"]
 
 
@@ -39,6 +45,41 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class LecunDense(Dense):
+    """``Dense`` with flax's default kernel init, ``lecun_normal``: a normal
+    of std ``sqrt(1/fan_in)/0.8796`` truncated at ±2 std (the attention
+    projections, whose flax ``DenseGeneral`` kernels flatten to
+    ``[fan_in, out]``); zero bias."""
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        std = (1.0 / self.in_features) ** 0.5 / .87962566103423978
+        nn.init.trunc_normal_(self.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                              generator=generator)
+        nn.init.zeros_(self.bias)
+
+
+def dropout(x: torch.Tensor, rate: float, train: bool = False,
+            generator: torch.Generator | None = None) -> torch.Tensor:
+    """The function of :class:`Dropout` with its rate as an argument."""
+    if not train:
+        return x
+    if generator is None:
+        raise ValueError("train-mode Dropout needs an explicit "
+                         "torch.Generator")
+    threshold = int(round((1.0 - rate) * 65536))
+    if not 0 <= threshold <= 65536:
+        raise ValueError(f"dropout rate {rate} outside [0, 1]")
+    if threshold == 65536:
+        return x
+    if threshold == 0:
+        return torch.zeros_like(x)
+    # keep rounded to x's dtype, as a host number: no device traffic
+    keep = float(torch.tensor(threshold / 65536.0, dtype=x.dtype))
+    mask = torch.rand(x.shape, generator=generator,
+                      device=x.device) < threshold / 65536.0
+    return torch.where(mask, x / keep, x.new_zeros(()))
 
 
 class Dropout(nn.Module):
@@ -61,23 +102,7 @@ class Dropout(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        if not train:
-            return x
-        if generator is None:
-            raise ValueError("train-mode Dropout needs an explicit "
-                             "torch.Generator")
-        threshold = int(round((1.0 - self.rate) * 65536))
-        if not 0 <= threshold <= 65536:
-            raise ValueError(f"dropout rate {self.rate} outside [0, 1]")
-        if threshold == 65536:
-            return x
-        if threshold == 0:
-            return torch.zeros_like(x)
-        # keep rounded to x's dtype, as a host number: no device traffic
-        keep = float(torch.tensor(threshold / 65536.0, dtype=x.dtype))
-        mask = torch.rand(x.shape, generator=generator,
-                          device=x.device) < threshold / 65536.0
-        return torch.where(mask, x / keep, x.new_zeros(()))
+        return dropout(x, self.rate, train, generator)
 
 
 class BatchNorm(nn.Module):
@@ -93,7 +118,10 @@ class BatchNorm(nn.Module):
     gradients through both; the running statistics are updated in place,
     without gradient, as ``r = 0.9·r + 0.1·batch`` (flax returns them in a
     new state). ``F.batch_norm(training=True)`` would update the running
-    variance with the unbiased estimate instead.
+    variance with the unbiased estimate instead. While ``recomputing`` is set
+    (:func:`frozen_statistics`, the backward's second forward of a
+    rematerialised block) the running statistics are left alone, so that
+    they move once a step, as flax's do under ``nn.remat``.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
@@ -106,6 +134,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.recomputing = False
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
@@ -113,12 +142,13 @@ class BatchNorm(nn.Module):
             xf = x.to(torch.float32)
             mean = xf.mean(dims)
             var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1.0 - m) * mean)
-                self.running_var.copy_(m * self.running_var
-                                       + (1.0 - m) * var)
+            if not self.recomputing:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1.0 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1.0 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         a = self.weight * torch.rsqrt(var + self.epsilon)
@@ -126,6 +156,46 @@ class BatchNorm(nn.Module):
         shape = (1, -1) + (1,) * (x.ndim - 2)
         dt = self.compute_dtype
         return x * a.to(dt).view(shape) + b.to(dt).view(shape)
+
+
+@contextlib.contextmanager
+def frozen_statistics(module: nn.Module):
+    """Set ``recomputing`` on every :class:`BatchNorm` in ``module`` for the
+    ``with`` body: the recompute context of a rematerialised block
+    (``torch.utils.checkpoint``'s ``context_fn``)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.recomputing = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.recomputing = False
+
+
+class LayerNorm(nn.Module):
+    """Flax ``nn.LayerNorm`` over the last dim (variables ``weight``/
+    ``bias`` hold flax's ``scale``/``bias``): float32 statistics
+    ``mean = E[x]``, ``var = max(E[x²] − E[x]², 0)`` (``use_fast_variance``,
+    float32 reductions), ``y = (x − mean)·(rsqrt(var + 1e-6)·scale) + bias``
+    in float32, cast to ``dtype``. ``torch.nn.LayerNorm`` has epsilon 1e-5
+    and two-pass statistics."""
+
+    def __init__(self, features: int, epsilon: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return ((xf - mean) * mul + self.bias).to(self.compute_dtype)
 
 
 class ConvBlock(nn.Module):
@@ -153,6 +223,49 @@ class ConvBlock(nn.Module):
         for conv, bn in zip(self.convs, self.bns):
             x = F.conv2d(x.to(dt), conv.weight.to(dt), padding=1)
             x = F.relu(bn(x, train))
+        if self.pool != (1, 1):
+            x = F.avg_pool2d(x, self.pool)
+        return x
+
+
+class GLUBlock(nn.Module):
+    """2 × (``lin`` and ``gate``: two separate 3×3 convs, padding 1, no bias,
+    each with its own BN → ``lin · sigmoid(gate)``) → 2×2 average pool, on
+    ``[B, C, T, F]`` (the JAX ``GLUBlock``, ``blocks.py:160-202``; flax
+    ``Conv_{lin,gate}_i`` / ``BatchNorm_{lin,gate}_i``). Two C-channel convs,
+    as in the JAX package, not one 2C conv split afterwards."""
+
+    def __init__(self, in_channels: int, channels: int,
+                 pool: tuple[int, int] = (2, 2),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.pool = tuple(pool)
+        self.compute_dtype = dtype
+
+        def convs():
+            return nn.ModuleList([
+                nn.Conv2d(in_channels if i == 0 else channels, channels, 3,
+                          padding=1, bias=False) for i in range(2)])
+
+        def bns():
+            return nn.ModuleList([BatchNorm(channels, dtype=dtype)
+                                  for _ in range(2)])
+
+        self.lin, self.gate = convs(), convs()
+        self.bn_lin, self.bn_gate = bns(), bns()
+
+    def reset_parameters(self, generator: torch.Generator | None = None):
+        for conv in (*self.lin, *self.gate):
+            nn.init.xavier_uniform_(conv.weight, generator=generator)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dt = self.compute_dtype
+        for lin, gate, bn_lin, bn_gate in zip(self.lin, self.gate,
+                                              self.bn_lin, self.bn_gate):
+            x = x.to(dt)
+            a = bn_lin(F.conv2d(x, lin.weight.to(dt), padding=1), train)
+            g = bn_gate(F.conv2d(x, gate.weight.to(dt), padding=1), train)
+            x = a * torch.sigmoid(g)
         if self.pool != (1, 1):
             x = F.avg_pool2d(x, self.pool)
         return x

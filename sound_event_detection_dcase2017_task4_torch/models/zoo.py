@@ -13,30 +13,38 @@ package's dict::
 Inside, the conv stack runs NCHW ``[B, C, T, F]``; the boundary keeps the JAX
 layout so the two packages compare like with like. Weights are initialised
 as flax initialises them (glorot-uniform conv and dense kernels, orthogonal
-GRU recurrent kernels, zero biases, BatchNorm scale 1 / bias 0) from an
-explicit ``torch.Generator``; the two frameworks draw different numbers, so
+GRU recurrent kernels, lecun-normal attention projections, zero biases,
+BatchNorm and LayerNorm scale 1 / bias 0) from an explicit
+``torch.Generator``; the two frameworks draw different numbers, so
 equivalence tests carry JAX weights across with ``weights.load_jax_variables``.
 
 ``forward(logmel, train=False, generator=None)``: train mode takes
 BatchNorm batch statistics (updating the running statistics in place) and
 draws dropout masks from ``generator``, as flax's ``train=True`` with a
-``dropout`` rng does. The port has ``block="conv"`` with ``seq`` "none" or
-"gru" and all five heads; GLU blocks and the Transformer wait for ROADMAP
-A10.
+``dropout`` rng does. Every configuration of the JAX ``SedCnn`` is here:
+``block`` "conv" or "glu", ``seq`` "none", "gru" or "transformer", all five
+heads, and ``remat``, which recomputes each block's activations in the
+backward (``torch.utils.checkpoint``) instead of keeping them.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import classes_num as _default_classes
-from .blocks import (AttBlock, ConvBlock, Dense, Dropout, interpolate,
+from .blocks import (AttBlock, ConvBlock, Dense, Dropout, GLUBlock, LayerNorm,
+                     LecunDense, dropout, frozen_statistics, interpolate,
                      pad_framewise_output)
 
-__all__ = ["BiGRU", "SedCnn", "MODEL_REGISTRY", "get_model"]
+__all__ = ["BiGRU", "SelfAttention", "TransformerEncoderLayer", "SedCnn",
+           "MODEL_REGISTRY", "get_model", "positional_encoding"]
 
 
 class BiGRU(nn.Module):
@@ -85,41 +93,157 @@ class BiGRU(nn.Module):
         return torch.func.functional_call(self.rnn, params, (x,))[0]
 
 
-class SedCnn(nn.Module):
-    """Configurable CNN[-GRU] tagging + SED model (see the JAX ``SedCnn``).
+class SelfAttention(nn.Module):
+    """Flax ``nn.SelfAttention`` (``MultiHeadDotProductAttention``, flax
+    0.12.3 ``linen/attention.py:130-161``) on ``[B, T, D]``: ``query``,
+    ``key`` and ``value`` projections with bias split head-major into
+    ``[B, T, H, D/H]``, the query divided by ``sqrt(D/H)`` cast to the
+    compute type, the softmax over keys in the compute type, then ``out``
+    maps the heads back to ``D``. In train mode the attention weights take
+    a dropout mask of shape ``[1, 1, T, T]`` shared by the batch and the
+    heads (``broadcast_dropout``): ``keep ~ Bernoulli(1 − rate)`` from the
+    explicit generator, weights × ``keep / keep_prob`` in the compute type.
+    Written as products and a softmax: ``scaled_dot_product_attention``
+    draws its dropout from the global generator, per element."""
 
+    def __init__(self, features: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if features % num_heads:
+            raise ValueError(f"{features} features do not split into "
+                             f"{num_heads} heads")
+        self.num_heads = num_heads
+        self.query, self.key, self.value, self.out = (
+            LecunDense(features, features, dtype) for _ in range(4))
+
+    def attention_weights(self, q: torch.Tensor, k: torch.Tensor,
+                          rate: float, train: bool = False,
+                          generator: torch.Generator | None = None
+                          ) -> torch.Tensor:
+        """``q, k [B, T, H, d]`` → weights ``[B, H, T, T]`` (flax's
+        ``dot_product_attention_weights``)."""
+        dt = q.dtype
+        depth = float(torch.tensor(q.shape[-1], dtype=torch.float32).sqrt()
+                      .to(dt))
+        w = torch.einsum("bqhd,bkhd->bhqk", q / depth, k)
+        w = torch.softmax(w, dim=-1)
+        if train and rate > 0.0:
+            if generator is None:
+                raise ValueError("train-mode attention dropout needs an "
+                                 "explicit torch.Generator")
+            keep_prob = 1.0 - rate
+            t_q, t_k = w.shape[-2:]
+            keep = torch.rand((1, 1, t_q, t_k), generator=generator,
+                              device=w.device) < keep_prob
+            w = w * (keep.to(dt) / float(torch.tensor(keep_prob, dtype=dt)))
+        return w
+
+    def forward(self, x: torch.Tensor, rate: float = 0.0, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        b, t, d = x.shape
+        split = (b, t, self.num_heads, d // self.num_heads)
+        q, k, v = (m(x).view(split) for m in (self.query, self.key, self.value))
+        w = self.attention_weights(q, k, rate, train, generator)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, t, d))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Pre-norm Transformer encoder block over time frames (the JAX
+    ``TransformerEncoderLayer``, ``zoo.py:63-91``): LN → self-attention →
+    residual, then LN → Dense(4d) → GELU (tanh approximation, flax's
+    ``nn.gelu``) → Dense(d) → Dropout → residual. ``dropout`` is the rate of
+    both the attention weights' dropout and the MLP's; like the JAX field it
+    is the layer's own, 0.1 whatever ``SedCnn.dropout`` is."""
+
+    def __init__(self, features: int, num_heads: int = 8, mlp_ratio: int = 4,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dropout = dropout
+        self.ln0 = LayerNorm(features, dtype=dtype)
+        self.attn = SelfAttention(features, num_heads, dtype)
+        self.ln1 = LayerNorm(features, dtype=dtype)
+        self.dense0 = Dense(features, features * mlp_ratio, dtype)
+        self.dense1 = Dense(features * mlp_ratio, features, dtype)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = x + self.attn(self.ln0(x), self.dropout, train, generator)
+        h = F.gelu(self.dense0(self.ln1(x)), approximate="tanh")
+        return x + dropout(self.dense1(h), self.dropout, train, generator)
+
+
+def positional_encoding(t: int, d: int, device=None) -> torch.Tensor:
+    """The JAX package's sinusoidal encoding ``[t, d]`` in float32
+    (``zoo.py:149-155``): ``sin(pos·div)`` on even features and
+    ``cos(pos·div[:(d+1)//2])`` on odd ones, ``div = exp(2i·(−log(1e4)/d))``
+    with ``log`` taken in float32 as JAX takes it (on the host: a tensor
+    made on the card from a host number is a blocking copy)."""
+    pos = torch.arange(t, dtype=torch.float32, device=device)[:, None]
+    c = float(-torch.tensor(10000.0).log() / d)
+    div = torch.exp(torch.arange(0, d, 2, device=device).to(torch.float32) * c)
+    pe = torch.zeros(t, d, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div[: (d + 1) // 2])
+    return pe
+
+
+def _recompute_contexts(block: nn.Module):
+    """``torch.utils.checkpoint``'s ``context_fn`` for a block: nothing in
+    the forward, the BatchNorm running statistics frozen in the recompute."""
+    return contextlib.nullcontext(), frozen_statistics(block)
+
+
+class SedCnn(nn.Module):
+    """Configurable CNN[-GLU][-GRU/-Transformer] tagging + SED model (see the
+    JAX ``SedCnn``).
+
+    * ``block="conv"|"glu"`` — ConvBlock stack or gated-GLU stack
     * ``channels`` — stack widths, 2×2 pooled after each block
-    * ``seq="none"|"gru"`` — temporal model on frame features
+    * ``seq="none"|"gru"|"transformer"`` — temporal model on frame features
+      (the Transformer: an input LayerNorm, the sinusoidal positional
+      encoding, ``transformer_layers`` encoder layers of 8 heads)
     * ``head="max"|"avg"|"att"|"lin"|"exp"`` — clipwise aggregation
+    * ``remat`` — in train mode, each block runs under
+      ``torch.utils.checkpoint`` (its activations are recomputed in the
+      backward, its BatchNorm running statistics updated once); dropout
+      stays outside the recomputed region, as in the JAX package. The
+      ``state_dict`` is the same either way.
     """
 
     def __init__(self, classes_num: int = _default_classes,
                  channels: Sequence[int] = (64, 128, 256, 512),
                  block: str = "conv", seq: str = "none", head: str = "att",
-                 gru_hidden: int = 256, dropout: float = 0.2,
-                 dtype: torch.dtype = torch.float32,
+                 gru_hidden: int = 256, transformer_layers: int = 2,
+                 dropout: float = 0.2, dtype: torch.dtype = torch.float32,
+                 remat: bool = False,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if block != "conv" or seq == "transformer":
-            raise NotImplementedError(
-                f"block={block!r} / seq={seq!r}: GLU blocks and the "
-                "Transformer are not ported yet (ROADMAP A10)")
-        if seq not in ("none", "gru"):
+        if block not in ("conv", "glu"):
+            raise ValueError(f"unknown block {block!r}")
+        if seq not in ("none", "gru", "transformer"):
             raise ValueError(f"unknown seq {seq!r}")
         if head not in ("max", "avg", "att", "lin", "exp"):
             raise ValueError(f"unknown head {head!r}")
         self.classes_num, self.channels = classes_num, tuple(channels)
-        self.seq, self.head, self.dtype = seq, head, dtype
+        self.block, self.seq, self.head, self.dtype = block, seq, head, dtype
+        self.remat = remat
+        block_cls = ConvBlock if block == "conv" else GLUBlock
         ins = (1,) + self.channels[:-1]
         self.blocks = nn.ModuleList([
-            ConvBlock(i, c, pool=(2, 2), dtype=dtype)
+            block_cls(i, c, pool=(2, 2), dtype=dtype)
             for i, c in zip(ins, self.channels)])
         self.dropouts = nn.ModuleList([Dropout(dropout) for _ in self.channels])
         width = self.channels[-1]
         self.gru = None
+        self.transformer = None
         if seq == "gru":
             self.gru = BiGRU(width, gru_hidden)
             width = 2 * gru_hidden
+        elif seq == "transformer":
+            self.input_norm = LayerNorm(width, dtype=dtype)
+            self.transformer = nn.ModuleList([
+                TransformerEncoderLayer(width, dtype=dtype)
+                for _ in range(transformer_layers)])
         if head == "att":
             self.att_block = AttBlock(width, classes_num, dtype)
         else:
@@ -131,21 +255,33 @@ class SedCnn(nn.Module):
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         for m in self.modules():
-            if isinstance(m, (ConvBlock, Dense, BiGRU)):
+            if isinstance(m, (ConvBlock, GLUBlock, Dense, BiGRU)):
                 m.reset_parameters(generator)
 
     def forward(self, logmel: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> dict:
         """``logmel [B, T, mel]`` → the output dict. ``train=True`` takes
-        BatchNorm batch statistics and runs dropout after every block with
-        masks from ``generator`` (required then)."""
+        BatchNorm batch statistics and runs dropout after every block (and
+        in the Transformer) with masks from ``generator`` (required then)."""
         frames_num = logmel.shape[1]
         x = logmel[:, None].to(self.dtype)                    # [B, 1, T, F]
         for block, drop in zip(self.blocks, self.dropouts):
-            x = drop(block(x, train), train, generator)
+            if self.remat and train:
+                x = checkpoint(block, x, train, use_reentrant=False,
+                               context_fn=functools.partial(
+                                   _recompute_contexts, block))
+            else:
+                x = block(x, train)
+            x = drop(x, train, generator)
         x = x.mean(dim=3).transpose(1, 2)                     # [B, T', C]
         if self.gru is not None:
             x = self.gru(x, train)
+        elif self.transformer is not None:
+            x = self.input_norm(x)
+            x = x + positional_encoding(x.shape[1], x.shape[2],
+                                        x.device).to(x.dtype)
+            for layer in self.transformer:
+                x = layer(x, train, generator)
         embedding = x
 
         if self.head == "att":
@@ -203,7 +339,7 @@ MODEL_REGISTRY: dict[str, dict] = {
 
 
 def get_model(model_type: str, classes_num: int = _default_classes,
-              dtype: torch.dtype = torch.float32,
+              dtype: torch.dtype = torch.float32, remat: bool = False,
               generator: torch.Generator | None = None) -> SedCnn:
     """Instantiate a model by its reference ``--model_type`` string (on the
     CPU; move it with ``.to(device)`` or hand it to ``Predictor``)."""
@@ -211,5 +347,5 @@ def get_model(model_type: str, classes_num: int = _default_classes,
         raise KeyError(
             f"unknown model_type {model_type!r}; available: "
             f"{sorted(MODEL_REGISTRY)}")
-    return SedCnn(classes_num=classes_num, dtype=dtype, generator=generator,
-                  **MODEL_REGISTRY[model_type])
+    return SedCnn(classes_num=classes_num, dtype=dtype, remat=remat,
+                  generator=generator, **MODEL_REGISTRY[model_type])

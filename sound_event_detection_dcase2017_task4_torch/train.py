@@ -1,25 +1,25 @@
-"""Training core: train state, train/eval steps, mixup.
+"""Training core: train state, train/eval steps, mixup, SpecAugment.
 
 Counterpart of ``sound_event_detection_dcase2017_task4_tpu/train.py``
 (reference: the step loop of ``pytorch/main.py:train`` — Adam(1e-3),
 clip-level BCE on weak labels, optional mixup). The step runs, in order:
 the log-mel frontend (or the fused ``(bank, idx) → log-mel`` bank frontend),
-the per-mel-bin normalisation ``(x − mean)/max(std, 1e-8)``, mixup, the
-forward in train mode, the loss, the backward and the Adam update.
+the per-mel-bin normalisation ``(x − mean)/max(std, 1e-8)``, SpecAugment,
+mixup, the forward in train mode, the loss, the backward and the Adam
+update.
 
 Where the JAX package returns a new state from a pure step, the port updates
 the model's parameters, its BatchNorm running statistics and the optimizer
 state in place, and returns only the metrics. Metrics (``loss``,
 ``grad_norm``, the optional ``nonfinite_count``) stay device tensors: the
 step never waits for the device. Random numbers come from generators the
-state owns: dropout masks from a ``torch.Generator`` on the step's device,
-mixup's λ ~ Beta(α, α) from a ``numpy.random.Generator`` on the host (B
-values a step, copied with the labels); no global generator is touched.
+state owns: dropout masks and SpecAugment's mask positions from a
+``torch.Generator`` on the step's device, mixup's λ ~ Beta(α, α) from a
+``numpy.random.Generator`` on the host (B values a step, copied with the
+labels); no global generator is touched.
 
 :func:`forward_generator` runs an eval step over a finite batch generator
 and gathers its outputs as numpy arrays (the inference and evaluation path).
-
-``spec_augment`` and ``--remat`` wait for ROADMAP A10.
 """
 
 from __future__ import annotations
@@ -36,7 +36,8 @@ from .losses import get_loss_func
 
 __all__ = ["TrainState", "create_train_state", "default_optimizer",
            "resolve_opt_config", "make_train_step", "make_eval_step",
-           "mixup", "forward_generator"]
+           "mixup", "spec_augment", "spec_augment_draws", "apply_spec_augment",
+           "forward_generator"]
 
 # Transformer-variant stabilizers of the JAX package (``train.py:50-60``):
 # linear LR warmup and global-norm clipping by default for
@@ -130,6 +131,56 @@ def mixup(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor):
             lam_y * y + (1 - lam_y) * y.flip(0))
 
 
+TIME_MASKS, TIME_WIDTH = 2, 64         # SpecAugment masks per example
+FREQ_MASKS, FREQ_WIDTH = 2, 8
+
+
+def spec_augment_draws(batch: int, frames: int, mel_bins: int,
+                       generator: torch.Generator):
+    """SpecAugment's mask positions for a ``[batch, frames, mel_bins]``
+    batch, drawn on ``generator``'s device: ``(time_starts, time_widths,
+    freq_starts, freq_widths)``, each ``[masks, batch]`` int64. Starts lie
+    in ``[0, max(1, frames − TIME_WIDTH))`` and widths in ``[0,
+    TIME_WIDTH]`` (likewise over mel bins), half-open as
+    ``jax.random.randint``'s ranges are."""
+    def draw(n, high):
+        return torch.randint(0, high, (n, batch), generator=generator,
+                             device=generator.device)
+
+    return (draw(TIME_MASKS, max(1, frames - TIME_WIDTH)),
+            draw(TIME_MASKS, TIME_WIDTH + 1),
+            draw(FREQ_MASKS, max(1, mel_bins - FREQ_WIDTH)),
+            draw(FREQ_MASKS, FREQ_WIDTH + 1))
+
+
+def apply_spec_augment(x: torch.Tensor, time_starts: torch.Tensor,
+                       time_widths: torch.Tensor, freq_starts: torch.Tensor,
+                       freq_widths: torch.Tensor) -> torch.Tensor:
+    """Fill the masked cells of the log-mel batch ``x [B, T, F]`` with each
+    example's mean over (T, F), taken once from the unmasked input (the JAX
+    package's ``spec_augment``, ``train.py:151-176``). A time mask covers
+    frames ``start ≤ t < start + width`` of its example, a freq mask mel
+    bins likewise; ``*_starts``/``*_widths`` are ``[masks, B]``."""
+    b, t, f = x.shape
+    fill = x.mean(dim=(1, 2), keepdim=True)
+
+    def covered(starts, widths, size):               # [B, size]
+        pos = torch.arange(size, device=x.device)
+        return ((pos >= starts[..., None])
+                & (pos < (starts + widths)[..., None])).any(dim=0)
+
+    mask = (covered(time_starts, time_widths, t)[:, :, None]
+            | covered(freq_starts, freq_widths, f)[:, None, :])
+    return torch.where(mask, fill, x)
+
+
+def spec_augment(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """SpecAugment (Park et al. 2019) on ``x [B, T, F]``: 2 time masks of
+    up to 64 frames and 2 freq masks of up to 8 mel bins, drawn from
+    ``generator`` on ``x``'s device, nothing read back to the host."""
+    return apply_spec_augment(x, *spec_augment_draws(*x.shape, generator))
+
+
 def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
     """A host array or a tensor on ``device``; a host array bound for the
     card goes through pinned memory without blocking."""
@@ -183,8 +234,10 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
     ``frontend`` (``ops.stft.make_logmel_fn``) makes ``batch_x`` a waveform
     batch, ``[B, samples]`` or staged ``[B, n_rows, hop]``, int16 with
     ``wave_scale`` or float32; ``scalar=(mean, std)`` normalises per mel
-    bin; ``mixup_alpha > 0`` mixes with λ ~ Beta(α, α) from the state's
-    host generator. ``check_numerics`` adds the count of non-finite values
+    bin; ``use_spec_augment`` masks the normalised log-mel
+    (:func:`spec_augment`, positions from the state's dropout generator);
+    ``mixup_alpha > 0`` mixes with λ ~ Beta(α, α) from the state's host
+    generator. ``check_numerics`` adds the count of non-finite values
     in the loss and the gradients. ``grad_norm`` is the global norm of the
     gradients before the update.
 
@@ -197,8 +250,6 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
     """
     if model is not state.model:
         raise ValueError("make_train_step: model is not the state's model")
-    if use_spec_augment:
-        raise NotImplementedError("spec_augment is not ported yet (ROADMAP A10)")
     loss_fn = get_loss_func(loss_type)
     device = state.device
     _check_bank_device(bank, device)
@@ -209,6 +260,8 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
         x = (_frontend_and_norm(batch_x, None, norm) if melled else
              _frontend_and_norm(batch_x, frontend, norm, wave_scale))
         y = _to_device(batch_y, device, torch.float32)
+        if use_spec_augment:
+            x = spec_augment(x, state.dropout_generator)
         if mixup_alpha > 0.0:
             lam = state.mixup_rng.beta(mixup_alpha, mixup_alpha, x.shape[0])
             x, y = mixup(x, y, _to_device(lam, device, torch.float32))

@@ -7,7 +7,12 @@ fills the port's ``SedCnn`` of the same configuration:
 * conv ``kernel`` HWIO → OIHW (``transpose(3, 2, 0, 1)``; H is time, W mel);
 * ``Dense.kernel [in, out]`` → ``weight [out, in]``;
 * BatchNorm ``scale``/``bias``/``mean``/``var`` → ``weight``/``bias``/
-  ``running_mean``/``running_var``;
+  ``running_mean``/``running_var``; GLU blocks carry ``Conv_{lin,gate}_j``
+  and ``BatchNorm_{lin,gate}_j`` one for one;
+* LayerNorm ``scale``/``bias`` → ``weight``/``bias``; the attention's
+  ``query``/``key``/``value`` ``kernel [d, H, d/H]`` → ``reshape(d, d).T``
+  with ``bias [H, d/H]`` → ``reshape(d)``, and ``out`` ``kernel [H, d/H, d]``
+  → ``reshape(d, d).T`` (heads stay head-major, as the port splits them);
 * BiGRU: ``GRUCell_0`` is forward, ``GRUCell_1`` backward (``_reverse``);
   ``weight_ih = cat([ir, iz, in]).T``, ``weight_hh = cat([hr, hz, hn]).T``,
   ``bias_ih = cat([ir.b, iz.b, in.b])`` and ``bias_hh = cat([0, 0, hn.b])``
@@ -45,17 +50,32 @@ def _plan(model: SedCnn) -> List[Tuple[str, List[Key], Callable]]:
     same = lambda a: a                                        # noqa: E731
     dense_t = lambda k: k.T                                   # noqa: E731
     plan: List[Tuple[str, List[Key], Callable]] = []
+
+    def dense(name: str, key: Key, kernel=dense_t, bias=same):
+        plan.extend([(f"{name}.weight", [key + ("kernel",)], kernel),
+                     (f"{name}.bias", [key + ("bias",)], bias)])
+
+    def norm(name: str, key: Key):
+        plan.extend([(f"{name}.weight", [key + ("scale",)], same),
+                     (f"{name}.bias", [key + ("bias",)], same)])
+
+    # (torch ModuleList names, flax suffix) of each block's convs and BNs
+    if model.block == "glu":
+        parts = [("lin", "bn_lin", "_lin"), ("gate", "bn_gate", "_gate")]
+    else:
+        parts = [("convs", "bns", "")]
     for i in range(len(model.blocks)):
         p, s = ("params", f"block{i}"), ("batch_stats", f"block{i}")
         for j in range(2):
-            plan.append((f"blocks.{i}.convs.{j}.weight",
-                         [p + (f"Conv_{j}", "kernel")],
-                         lambda k: k.transpose(3, 2, 0, 1)))
-            bn, name = f"blocks.{i}.bns.{j}", f"BatchNorm_{j}"
-            plan += [(f"{bn}.weight", [p + (name, "scale")], same),
-                     (f"{bn}.bias", [p + (name, "bias")], same),
-                     (f"{bn}.running_mean", [s + (name, "mean")], same),
-                     (f"{bn}.running_var", [s + (name, "var")], same)]
+            for convs, bns, sfx in parts:
+                plan.append((f"blocks.{i}.{convs}.{j}.weight",
+                             [p + (f"Conv{sfx}_{j}", "kernel")],
+                             lambda k: k.transpose(3, 2, 0, 1)))
+                bn, name = f"blocks.{i}.{bns}.{j}", f"BatchNorm{sfx}_{j}"
+                plan += [(f"{bn}.weight", [p + (name, "scale")], same),
+                         (f"{bn}.bias", [p + (name, "bias")], same),
+                         (f"{bn}.running_mean", [s + (name, "mean")], same),
+                         (f"{bn}.running_var", [s + (name, "var")], same)]
     if model.gru is not None:
         for cell, sfx in (("GRUCell_0", ""), ("GRUCell_1", "_reverse")):
             g = ("params", "BiGRU_0", cell)
@@ -73,15 +93,26 @@ def _plan(model: SedCnn) -> List[Tuple[str, List[Key], Callable]]:
                  lambda b: np.concatenate([np.zeros_like(b),
                                            np.zeros_like(b), b])),
             ]
+    if model.transformer is not None:
+        heads_in = lambda k: k.reshape(k.shape[0], -1).T      # noqa: E731
+        heads_out = lambda k: k.reshape(-1, k.shape[-1]).T    # noqa: E731
+        flat = lambda b: b.reshape(-1)                        # noqa: E731
+        norm("input_norm", ("params", "LayerNorm_0"))
+        for k in range(len(model.transformer)):
+            t, f = f"transformer.{k}", ("params", f"TransformerEncoderLayer_{k}")
+            norm(f"{t}.ln0", f + ("LayerNorm_0",))
+            norm(f"{t}.ln1", f + ("LayerNorm_1",))
+            for proj in ("query", "key", "value"):
+                dense(f"{t}.attn.{proj}", f + ("SelfAttention_0", proj),
+                      heads_in, flat)
+            dense(f"{t}.attn.out", f + ("SelfAttention_0", "out"), heads_out)
+            dense(f"{t}.dense0", f + ("Dense_0",))
+            dense(f"{t}.dense1", f + ("Dense_1",))
     if model.head == "att":
-        for mod, dense in (("att", "Dense_0"), ("cla", "Dense_1")):
-            d = ("params", "AttBlock_0", dense)
-            plan += [(f"att_block.{mod}.weight", [d + ("kernel",)], dense_t),
-                     (f"att_block.{mod}.bias", [d + ("bias",)], same)]
+        dense("att_block.att", ("params", "AttBlock_0", "Dense_0"))
+        dense("att_block.cla", ("params", "AttBlock_0", "Dense_1"))
     else:
-        d = ("params", "Dense_0")
-        plan += [("dense.weight", [d + ("kernel",)], dense_t),
-                 ("dense.bias", [d + ("bias",)], same)]
+        dense("dense", ("params", "Dense_0"))
     return plan
 
 

@@ -3,7 +3,8 @@
 * ``msgpack_restore`` against ``flax.serialization.msgpack_restore`` on a
   real JAX ``TrainState`` file (every leaf bit-equal) and against the
   ``msgpack`` package on values of every type and size class it encodes;
-* ``import_jax_checkpoint`` gives the flax model's outputs (atol 1e-5, f32);
+* ``import_jax_checkpoint`` gives the flax model's outputs (atol 1e-5, f32),
+  for the CRNN, the GLU CNN and the CNN-Transformer;
 * save → load restores every part of the train state bit for bit, and a
   step taken after the load equals the step the saved run takes next;
 * file names, sidecars, pruning and the optimizer-recipe check.
@@ -90,16 +91,29 @@ def test_msgpack_float32_ext_and_scalars():
         checkpoints.msgpack_restore(msgpack.packb("abcdef")[:-2])
 
 
-def test_import_jax_checkpoint_gives_the_flax_outputs(jax_ckpt):
-    path, jmodel, jstate = jax_ckpt
-    x = np.random.default_rng(1).standard_normal((2, 51, 64)).astype(np.float32)
-    want = jmodel.apply({"params": jstate.params,
-                         "batch_stats": jstate.batch_stats}, x, train=False)
-    model = checkpoints.import_jax_checkpoint(path, SedCnn(seq="gru", head="att",
-                                                           **SMALL))
+@pytest.mark.parametrize("kw", [dict(seq="gru", head="att"),
+                                dict(block="glu", head="att"),
+                                dict(seq="transformer", head="att")],
+                         ids=["gru", "glu", "transformer"])
+def test_import_jax_checkpoint_gives_the_flax_outputs(kw, tmp_path):
+    """A JAX ``.ckpt`` of the CRNN, the GLU CNN and the CNN-Transformer
+    (trained one step, so its batch statistics and biases are not the
+    init's) imported through ``import_jax_checkpoint``: the flax model's
+    eval outputs within 1e-5; another model shape is refused."""
+    cfg = jconfig.Config(clip_samples=16000)
+    jm = JaxSedCnn(**kw, **SMALL)
+    state, tx = jtrain.create_train_state(jm, cfg, example_frames=51, seed=4)
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((4, 51, 64)).astype(np.float32)
+    y = (rng.random((4, 17)) < 0.3).astype(np.float32)
+    state, _ = jtrain.make_train_step(jm, tx, donate_state=False)(state, x, y)
+    path = jckpt.save_checkpoint(str(tmp_path), state)
+    want = jm.apply({"params": state.params, "batch_stats": state.batch_stats},
+                    x, train=False)
+    model = checkpoints.import_jax_checkpoint(path, SedCnn(**kw, **SMALL))
     with torch.no_grad():
         got = model(torch.from_numpy(x))
-    for k in ("clipwise_output", "framewise_output"):
+    for k in ("clipwise_output", "framewise_output", "embedding"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-5)
     with pytest.raises((KeyError, ValueError)):     # another model shape
         checkpoints.import_jax_checkpoint(path, SedCnn(seq="none", **SMALL))

@@ -15,9 +15,12 @@ device="cpu")``:
   the port's ``calculate_metrics``, ``optimize_at_thresholds`` and
   ``optimize_sed_thresholds`` give the same metrics JSON (1e-12), the same
   submission TSV bytes and the same threshold pickles;
-* resuming gives bit-equal parameters, optimizer state and statistics; the
-  two device-cache transports train identically; ``--check_numerics``
-  aborts; ``Predictor.from_workspace`` serves the checkpoints it should.
+* resuming gives bit-equal parameters, optimizer state and statistics (also
+  with SpecAugment and ``--remat``); the two device-cache transports train
+  identically; ``--check_numerics`` aborts; ``Predictor.from_workspace``
+  serves the checkpoints it should;
+* the GLU and Transformer models, ``--remat`` and SpecAugment train; a
+  Transformer run's ``.optjson`` recipe is adopted with no flags passed.
 """
 
 import argparse
@@ -360,22 +363,28 @@ def _assert_same_checkpoint(a, b):
     assert a["mixup_rng"] == b["mixup_rng"] and a["step"] == b["step"]
 
 
-def test_resume_is_bit_exact(port_ws, tmp_path):
+@pytest.mark.parametrize("aug,flags", [
+    ("mixup", []), ("mixup_specaugment", ["--remat"])],
+    ids=["mixup", "mixup_specaugment-remat"])
+def test_resume_is_bit_exact(port_ws, tmp_path, aug, flags):
     """6 steps straight against 3 steps and a resume for 3 more (bank
-    transport, mixup, dropout; evals at 0, 3 and 6)."""
+    transport, mixup, dropout, with SpecAugment and ``--remat`` in the
+    second case; evals at 0, 3 and 6)."""
     straight = _fresh(port_ws, str(tmp_path / "a"))
     split = _fresh(port_ws, str(tmp_path / "b"))
     run = lambda ws, *extra: main.main([TRAIN[0], f"--workspace={ws}", *TRAIN[1:],  # noqa: E731
-                                        "--device_cache=on", *extra], device="cpu")
+                                        "--device_cache=on",
+                                        f"--augmentation={aug}", *flags, *extra],
+                                       device="cpu")
     r = run(straight, "--stop_iteration=6")
     assert [e["iteration"] for e in r["evals"]] == [0, 3, 6]
     run(split, "--stop_iteration=3")
-    with open(_ckpt(split, 3).replace(".pth", ".datastate.pkl"), "rb") as f:
+    with open(_ckpt(split, 3, aug).replace(".pth", ".datastate.pkl"), "rb") as f:
         pos = pickle.load(f)
     assert pos["ptr"] == 12 and pos["order"] is not None   # 3 batches of 4 drawn
     run(split, "--stop_iteration=6", "--resume_iteration=3")
-    _assert_same_checkpoint(_ckpt(straight, 6), _ckpt(split, 6))
-    a, b = _stats(straight), _stats(split)
+    _assert_same_checkpoint(_ckpt(straight, 6, aug), _ckpt(split, 6, aug))
+    a, b = _stats(straight, aug), _stats(split, aug)
     assert [r["iteration"] for r in a] == [r["iteration"] for r in b] == [0, 0, 3, 3, 6, 6]
     np.testing.assert_equal(a, b)
 
@@ -470,12 +479,46 @@ def test_defaults_to_the_card_and_unported_options(port_ws, tmp_path):
         features.main(["calculate_feature_for_all_audio_files",
                        f"--workspace={ws}", "--dataset_dir=/nowhere",
                        "--data_type=training"], device="cpu")
+    # what once raised trains a step on the CPU: SpecAugment, --remat and
+    # the GLU and Transformer models (full width, 0.5 s clips)
     for extra in (["--augmentation=specaugment"], ["--remat"],
                   ["--model_type=Cnn_9layers_Glu_AttPooling"],
                   ["--model_type=Cnn_9layers_Transformer_FrameAtt"]):
-        with pytest.raises(NotImplementedError, match="A10"):
-            main.main(["train", f"--workspace={ws}", *COMMON, *extra,
-                       "--stop_iteration=1"], device="cpu")
+        run = main.main(["train", f"--workspace={ws}", *COMMON, *extra,
+                         "--stop_iteration=1", "--eval_max_iteration=1"],
+                        device="cpu")
+        assert run["iteration"] == 1 and np.isfinite(run["loss"]), extra
+
+
+def test_transformer_checkpoint_sidecar_no_flags_eval(port_ws, tmp_path):
+    """The port's mirror of the JAX CLI test: a Transformer run trained with
+    non-default --warmup_steps/--grad_clip records them in the .optjson
+    sidecar; inference and a resume adopt them with no flags passed, and
+    a mismatched flag raises."""
+    ws = _fresh(port_ws, str(tmp_path / "ws"))
+    tr = ["--model_type=Cnn_9layers_Transformer_FrameAtt", "--batch_size=4"]
+    rc = os.path.join(ws, "checkpoints", "main",
+                      "model_type=Cnn_9layers_Transformer_FrameAtt",
+                      "loss_type=clip_bce", "augmentation=none", "batch_size=4")
+    cpu = lambda argv: main.main(argv, device="cpu")      # noqa: E731
+    cpu(["train", f"--workspace={ws}", *tr, "--warmup_steps=7",
+         "--grad_clip=0.25", "--stop_iteration=2", "--eval_interval=2",
+         "--eval_max_iteration=1"])
+    with open(os.path.join(rc, "2_iterations.optjson")) as f:
+        assert json.load(f) == {"learning_rate": 1e-3, "warmup_steps": 7,
+                                "grad_clip": 0.25}
+    cpu(["inference", f"--workspace={ws}", *tr, "--data_type=testing"])
+    assert os.path.isfile(os.path.join(
+        ws, "predictions", "main", os.path.relpath(rc, os.path.join(
+            ws, "checkpoints", "main")), "testing.pickle"))
+    with pytest.raises(ValueError, match="optimizer config mismatch"):
+        cpu(["inference", f"--workspace={ws}", *tr, "--warmup_steps=99",
+             "--data_type=testing"])
+    cpu(["train", f"--workspace={ws}", *tr, "--resume_iteration=2",
+         "--stop_iteration=3", "--eval_interval=10", "--eval_max_iteration=1"])
+    assert os.path.isfile(os.path.join(rc, "3_iterations.pth"))
+    assert torch.load(os.path.join(rc, "3_iterations.pth"), map_location="cpu",
+                      weights_only=True)["scheduler"]["last_epoch"] == 3
 
 
 def test_holdout_and_lazy_inference_build(port_ws):

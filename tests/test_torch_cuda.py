@@ -9,7 +9,8 @@ int16/float32 corpus bank) is held to its plain PyTorch version on the card
 (TF32 off): 0.1 dB absolute and rtol 2e-3 in the linear domain; the int16
 bank launch is bit-equal to the waveform launch on the decoded rows. The
 CLI trains on the card through the bank kernel (device cache on) and the
-waveform kernel (off). This file imports nothing of the JAX package.
+waveform kernel (off); the GLU and Transformer steps match the CPU's. This
+file imports nothing of the JAX package.
 """
 
 import numpy as np
@@ -151,6 +152,42 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         model = SedCnn(channels=(8, 16), seq="gru", gru_hidden=16, dropout=0.0,
                        generator=torch.Generator().manual_seed(0))
         state = train.create_train_state(model, cfg, device=dev)
+        step = train.make_train_step(
+            model, state, bank=torch.from_numpy(staged).to(dev),
+            wave_scale=scale,
+            bank_frontend=stft.make_logmel_bank_fn(cfg, wave_scale=scale))
+        m = step(idx, y)
+        runs.append((float(m["loss"]), float(m["grad_norm"]),
+                     {k: v.cpu() for k, v in model.state_dict().items()
+                      if "running" in k}))
+    (l_gpu, g_gpu, s_gpu), (l_cpu, g_cpu, s_cpu) = runs
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=2e-5)
+    np.testing.assert_allclose(g_gpu, g_cpu, rtol=1e-4)
+    for k in s_cpu:
+        torch.testing.assert_close(s_gpu[k], s_cpu[k], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("kw", [dict(block="glu", remat=True),
+                                dict(seq="transformer")],
+                         ids=["glu-remat", "transformer"])
+def test_glu_and_transformer_steps_on_the_card_match_the_cpu(cuda, kw):
+    """One f32 step of the GLU CNN (with ``remat``) and of the
+    CNN-Transformer over an int16 bank, every dropout 0, on the card (bank
+    kernel, cuDNN, the attention's products) and on the CPU: the ROADMAP
+    ground-rule tolerances."""
+    cfg = config.Config(clip_samples=16000)
+    _, staged = _bank(cfg)
+    idx = np.array([1, 3, 0, 3])
+    y = (np.random.RandomState(3).rand(4, 17) < 0.3).astype(np.float32)
+    scale = 2.0 ** -15
+    runs = []
+    for dev in ("cuda", "cpu"):
+        model = SedCnn(channels=(8, 16), dropout=0.0, **kw,
+                       generator=torch.Generator().manual_seed(0))
+        for layer in model.transformer or ():
+            layer.dropout = 0.0
+        state = train.create_train_state(model, cfg, device=dev,
+                                         warmup_steps=0, grad_clip=0.0)
         step = train.make_train_step(
             model, state, bank=torch.from_numpy(staged).to(dev),
             wave_scale=scale,

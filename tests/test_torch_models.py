@@ -1,10 +1,11 @@
 """Port models vs the JAX package's flax models, on the same weights.
 
 Small widths (``channels=(8, 16)``, ``gru_hidden=16``, 0.5 s clips → 51
-frames). JAX variables are initialised by flax and carried into the port by
-``weights.load_jax_variables``; eval-mode outputs must agree at float32 to
-atol 1e-5 (float32 sums in another order; the outputs are probabilities and
-O(1) features).
+frames; the Transformer's 8 heads of width 2). JAX variables are initialised
+by flax and carried into the port by ``weights.load_jax_variables``;
+eval-mode outputs must agree at float32 to atol 1e-5 (float32 sums in
+another order; the outputs are probabilities and O(1) features) for every
+block (conv, GLU), sequence model (none, BiGRU, Transformer) and head.
 """
 
 import jax
@@ -17,8 +18,9 @@ from sound_event_detection_dcase2017_task4_tpu.models import SedCnn as JaxSedCnn
 from sound_event_detection_dcase2017_task4_torch.models import (
     MODEL_REGISTRY, SedCnn, get_model)
 from sound_event_detection_dcase2017_task4_torch.models.blocks import (
-    BatchNorm, Dropout, frames_after_pooling, interpolate,
+    BatchNorm, Dropout, LayerNorm, frames_after_pooling, interpolate,
     pad_framewise_output)
+from sound_event_detection_dcase2017_task4_torch.models.zoo import SelfAttention
 from sound_event_detection_dcase2017_task4_torch.weights import load_jax_variables
 
 torch.set_num_threads(2)
@@ -38,12 +40,12 @@ def logmel():
     return np.random.RandomState(0).randn(2, 51, 64).astype(np.float32)
 
 
-def _pair(seq, head, x, seed=0, dtype=None):
-    jm = JaxSedCnn(seq=seq, head=head, **SMALL,
+def _pair(seq, head, x, seed=0, dtype=None, block="conv"):
+    jm = JaxSedCnn(block=block, seq=seq, head=head, **SMALL,
                    **({} if dtype is None else {"dtype": dtype[0]}))
     variables = _numpy_tree(jm.init({"params": jax.random.PRNGKey(seed)},
                                     jnp.asarray(x), train=False))
-    tm = SedCnn(seq=seq, head=head, **SMALL,
+    tm = SedCnn(block=block, seq=seq, head=head, **SMALL,
                 **({} if dtype is None else {"dtype": dtype[1]}))
     load_jax_variables(tm, variables)
     return jm, variables, tm.eval()
@@ -57,10 +59,20 @@ def _outputs(jm, variables, tm, x):
             {k: to[k].float().numpy() for k in KEYS})
 
 
-@pytest.mark.parametrize("seq", ["none", "gru"])
-@pytest.mark.parametrize("head", ["max", "avg", "att", "lin", "exp"])
-def test_forward_matches_jax(seq, head, logmel):
-    jo, to = _outputs(*_pair(seq, head, logmel), logmel)
+# (block, seq, head): the conv cases keep their "head-seq" ids
+CASES = ([pytest.param("conv", seq, head, id=f"{head}-{seq}")
+          for head in ("max", "avg", "att", "lin", "exp")
+          for seq in ("none", "gru")]
+         + [pytest.param("conv", "transformer", head, id=f"{head}-transformer")
+            for head in ("att", "avg")]
+         + [pytest.param("glu", seq, head, id=f"glu-{head}-{seq}")
+            for head in ("att", "avg")
+            for seq in ("none", "gru", "transformer")])
+
+
+@pytest.mark.parametrize("block,seq,head", CASES)
+def test_forward_matches_jax(block, seq, head, logmel):
+    jo, to = _outputs(*_pair(seq, head, logmel, block=block), logmel)
     assert to["clipwise_output"].shape == (2, 17)
     assert to["framewise_output"].shape == (2, 51, 17)
     width = 32 if seq == "gru" else 16
@@ -69,21 +81,30 @@ def test_forward_matches_jax(seq, head, logmel):
         np.testing.assert_allclose(to[k], jo[k], atol=1e-5, rtol=0, err_msg=k)
 
 
+def _perturbed(variables, seed):
+    """``variables`` with non-zero biases and means and non-unit scales and
+    variances everywhere."""
+    rng = np.random.RandomState(seed)
+
+    def perturb(node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                perturb(v)
+            elif k in ("bias", "mean"):
+                node[k] = (0.3 * rng.randn(*v.shape)).astype(np.float32)
+            elif k in ("scale", "var"):
+                node[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
+
+    for tree in (variables["params"], variables["batch_stats"]):
+        perturb(tree)
+    return variables
+
+
 def test_nontrivial_batch_stats_and_biases(logmel):
     """Non-zero, non-unit BatchNorm statistics and scales, and non-zero GRU
     and dense biases — the bridge's every mapping is exercised."""
     jm, variables, _ = _pair("gru", "att", logmel)
-    rng = np.random.RandomState(5)
-    for tree in (variables["params"], variables["batch_stats"]):
-        def perturb(node):
-            for k, v in node.items():
-                if isinstance(v, dict):
-                    perturb(v)
-                elif k in ("bias", "mean"):
-                    node[k] = (0.3 * rng.randn(*v.shape)).astype(np.float32)
-                elif k in ("scale", "var"):
-                    node[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
-        perturb(tree)
+    _perturbed(variables, 5)
     tm = SedCnn(seq="gru", head="att", **SMALL)
     load_jax_variables(tm, variables)
     jo, to = _outputs(jm, variables, tm.eval(), logmel)
@@ -96,15 +117,39 @@ def test_nontrivial_batch_stats_and_biases(logmel):
     assert tm.gru.rnn.bias_ih_l0.abs().sum() > 0
 
 
-def test_bf16_compute_tracks_jax(logmel):
-    """``dtype`` = bf16 in both packages (params stay f32): outputs agree to
-    bf16 rounding (2e-2 on probabilities and features)."""
-    jm, variables, tm = _pair("gru", "att", logmel,
+def test_nontrivial_statistics_and_biases_of_glu_and_transformer(logmel):
+    """The new bridge paths with perturbed values: the GLU blocks' lin/gate
+    BatchNorms, the LayerNorms' scales and biases, the attention
+    projections' head-major biases."""
+    jm, variables, _ = _pair("transformer", "att", logmel, block="glu")
+    _perturbed(variables, 6)
+    tm = load_jax_variables(SedCnn(block="glu", seq="transformer", head="att",
+                                   **SMALL), variables)
+    jo, to = _outputs(jm, variables, tm.eval(), logmel)
+    for k in KEYS:
+        np.testing.assert_allclose(to[k], jo[k], atol=1e-5, rtol=0, err_msg=k)
+    attn = variables["params"]["TransformerEncoderLayer_1"]["SelfAttention_0"]
+    np.testing.assert_array_equal(tm.transformer[1].attn.key.bias.detach().numpy(),
+                                  attn["key"]["bias"].reshape(-1))
+    assert tm.blocks[1].bn_gate[1].running_var.min() >= 0.5
+
+
+@pytest.mark.parametrize("block,seq", [("conv", "gru"), ("glu", "none"),
+                                       ("conv", "transformer")])
+def test_bf16_compute_tracks_jax(block, seq, logmel):
+    """``dtype`` = bf16 in both packages (params stay f32): probabilities
+    within 2e-2, the features within 2e-2 of their largest magnitude (the
+    Transformer's residual stream reaches |x| ≈ 4, where one bf16 step is
+    2⁻⁵ ≈ 0.03)."""
+    jm, variables, tm = _pair(seq, "att", logmel, block=block,
                               dtype=(jnp.bfloat16, torch.bfloat16))
     assert all(p.dtype == torch.float32 for p in tm.parameters())
     jo, to = _outputs(jm, variables, tm, logmel)
-    for k in KEYS:
+    for k in ("clipwise_output", "framewise_output"):
         np.testing.assert_allclose(to[k], jo[k], atol=2e-2, rtol=0, err_msg=k)
+    scale = np.abs(jo["embedding"]).max()
+    np.testing.assert_allclose(to["embedding"], jo["embedding"],
+                               atol=2e-2 * scale, rtol=0)
 
 
 def test_bridge_rejects_missing_and_extra_keys(logmel):
@@ -124,17 +169,33 @@ def test_bridge_rejects_missing_and_extra_keys(logmel):
     # the att head's tree does not fill a max-head model
     with pytest.raises(KeyError):
         load_jax_variables(SedCnn(seq="gru", head="max", **SMALL), variables)
+    # a Transformer tree without one attention output bias
+    _, tvars, _ = _pair("transformer", "att", logmel)
+    del tvars["params"]["TransformerEncoderLayer_0"]["SelfAttention_0"]["out"]["bias"]
+    with pytest.raises(KeyError, match="SelfAttention_0/out/bias"):
+        load_jax_variables(SedCnn(seq="transformer", head="att", **SMALL), tvars)
+    # a conv tree does not fill a GLU model
+    with pytest.raises(KeyError, match="Conv_lin_0"):
+        load_jax_variables(SedCnn(block="glu", seq="gru", head="att", **SMALL),
+                           variables)
 
 
 def test_registry_names_and_unported_blocks():
-    jax_names = set(__import__(
-        "sound_event_detection_dcase2017_task4_tpu.models",
-        fromlist=["MODEL_REGISTRY"]).MODEL_REGISTRY)
-    assert set(MODEL_REGISTRY) == jax_names
+    """Every registry name builds at full width, with as many parameters as
+    flax's model (the port's BiGRU also holds ``bias_hh``'s r and z slices,
+    2·256 a direction, kept at zero)."""
+    jax_models = __import__("sound_event_detection_dcase2017_task4_tpu.models",
+                            fromlist=["MODEL_REGISTRY"])
+    assert set(MODEL_REGISTRY) == set(jax_models.MODEL_REGISTRY)
+    x = jnp.zeros((1, 101, 64))
     for name, kw in MODEL_REGISTRY.items():
-        if kw.get("block") == "glu" or kw.get("seq") == "transformer":
-            with pytest.raises(NotImplementedError, match="A10"):
-                get_model(name)
+        m = get_model(name)
+        shapes = jax.eval_shape(lambda: jax_models.get_model(name).init(
+            jax.random.PRNGKey(0), x, train=False))["params"]
+        want = sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(shapes))
+        got = sum(p.numel() for p in m.parameters())
+        assert got - (4 * 256 if kw.get("seq") == "gru" else 0) == want, name
+        assert (m.block, m.seq) == (kw.get("block", "conv"), kw.get("seq", "none"))
     m = get_model("Cnn_9layers_Gru_FrameAtt")
     assert m.channels == (64, 128, 256, 512) and m.gru.hidden == 256
     with pytest.raises(KeyError):
@@ -232,6 +293,54 @@ def test_batchnorm_train_matches_flax():
     np.testing.assert_allclose(bn.weight.grad.numpy(), j_gs, **tol)
     np.testing.assert_allclose(bn.bias.grad.numpy(), j_gb, **tol)
     assert not bn.running_mean.requires_grad and not bn.running_var.requires_grad
+
+
+def test_layernorm_matches_flax():
+    """Flax's LayerNorm: epsilon 1e-6 and E[x²] − E[x]² statistics in
+    float32, the result cast to the compute type. On features of variance
+    ~1e-6, where the epsilon matters, ``torch.nn.LayerNorm``'s 1e-5 is
+    visibly off and the port's is within 1e-5."""
+    from flax import linen as fnn
+
+    rng = np.random.RandomState(8)
+    x = (1e-3 * rng.randn(3, 7, 16)).astype(np.float32)
+    scale = rng.uniform(0.5, 2.0, 16).astype(np.float32)
+    bias = (0.3 * rng.randn(16)).astype(np.float32)
+    want = np.asarray(fnn.LayerNorm().apply(
+        {"params": {"scale": scale, "bias": bias}}, jnp.asarray(x)))
+    ln = LayerNorm(16)
+    with torch.no_grad():
+        ln.weight.copy_(torch.from_numpy(scale))
+        ln.bias.copy_(torch.from_numpy(bias))
+        got = ln(torch.from_numpy(x)).numpy()
+        plain = torch.nn.functional.layer_norm(
+            torch.from_numpy(x), (16,), ln.weight, ln.bias).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    assert np.abs(plain - want).max() > 0.1
+    ln16 = LayerNorm(16, dtype=torch.bfloat16)
+    assert ln16(torch.from_numpy(x).to(torch.bfloat16)).dtype == torch.bfloat16
+
+
+def test_attention_dropout_mask_is_shared_by_batch_and_heads():
+    """Train-mode attention dropout draws one ``[T, T]`` keep mask for the
+    whole batch and every head (flax's ``broadcast_dropout``), scales the
+    kept weights by 1/keep_prob, and draws from the explicit generator
+    only."""
+    attn = SelfAttention(16, 8)
+    g = torch.Generator().manual_seed(0)
+    q, k = torch.randn(3, 5, 8, 2, generator=g), torch.randn(3, 5, 8, 2, generator=g)
+    plain = attn.attention_weights(q, k, 0.5)
+    torch.testing.assert_close(plain.sum(-1), torch.ones(3, 8, 5))
+    state = torch.random.get_rng_state()
+    w = attn.attention_weights(q, k, 0.5, train=True,
+                               generator=torch.Generator().manual_seed(1))
+    assert torch.equal(torch.random.get_rng_state(), state)
+    dropped = w == 0
+    assert dropped.any() and not dropped.all()
+    assert torch.equal(dropped, dropped[:1, :1].expand_as(dropped))
+    torch.testing.assert_close(w[~dropped], plain[~dropped] / 0.5)
+    with pytest.raises(ValueError, match="Generator"):
+        attn.attention_weights(q, k, 0.5, train=True)
 
 
 def test_dropout_train_mode():

@@ -4,7 +4,10 @@ Small widths (``channels=(8, 16)``, ``gru_hidden=16``) and 0.5 s clips
 (``Config(clip_samples=16000)`` → 51 frames). Both packages start from the
 same flax init (carried into the port by ``weights.load_jax_variables``) and
 take the same numpy-seeded int16 bank, index and targets, with dropout 0 and
-no mixup, so that the step is deterministic on both sides.
+no mixup, so that the step is deterministic on both sides. The JAX
+Transformer layers fix their dropout at 0.1, so the step tests patch the
+name ``TransformerEncoderLayer`` in the JAX zoo module with a
+``functools.partial`` setting ``dropout=0.0`` (the JAX files are unchanged).
 
 Tolerances (float32 on the CPU, sums taken in another order): loss rtol 2e-5,
 grad-norm rtol 1e-4, BatchNorm running statistics rtol 1e-4 / atol 1e-5 (the
@@ -17,6 +20,8 @@ after the Adam step atol 1e-5 wherever ``|g| > 1e-4·max|g|`` of the leaf
 float32 noise).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,9 +33,11 @@ from sound_event_detection_dcase2017_task4_tpu import losses as jlosses
 from sound_event_detection_dcase2017_task4_tpu import train as jtrain
 from sound_event_detection_dcase2017_task4_tpu.data import hdf5 as jhdf5
 from sound_event_detection_dcase2017_task4_tpu.models import SedCnn as JaxSedCnn
+from sound_event_detection_dcase2017_task4_tpu.models import zoo as jzoo
 from sound_event_detection_dcase2017_task4_tpu.ops import pallas_logmel as jpl
 from sound_event_detection_dcase2017_task4_tpu.ops import stft as jstft
-from sound_event_detection_dcase2017_task4_torch import config, losses, train
+from sound_event_detection_dcase2017_task4_torch import (checkpoints, config,
+                                                         losses, train)
 from sound_event_detection_dcase2017_task4_torch.data import hdf5
 from sound_event_detection_dcase2017_task4_torch.models import SedCnn
 from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
@@ -129,12 +136,15 @@ def test_opt_config_and_warmup_match_jax():
     assert train.default_optimizer(m)[1] is None
 
 
-def _jax_side(seq, head, data):
+def _jax_side(block, seq, head, data):
     """JAX init, one ``make_train_step`` over the bank with the XLA bank
-    frontend, and the gradients of the same loss from ``jax.value_and_grad``."""
+    frontend, and the gradients of the same loss from ``jax.value_and_grad``
+    (no warmup, no clipping: the Transformer's defaults would hold the first
+    step's learning rate at 0 and clip the gradients it compares)."""
     cfg, jcfg, bank, idx, y, scalar = data
-    jm = JaxSedCnn(seq=seq, head=head, dropout=0.0, **SMALL)
-    state, tx = jtrain.create_train_state(jm, jcfg, seed=0)
+    jm = JaxSedCnn(block=block, seq=seq, head=head, dropout=0.0, **SMALL)
+    state, tx = jtrain.create_train_state(jm, jcfg, seed=0, warmup_steps=0,
+                                          grad_clip=0.0)
     init = {"params": _numpy_tree(state.params),
             "batch_stats": _numpy_tree(state.batch_stats)}
     bank_fn = jstft.make_logmel_bank_fn(jcfg, use_pallas=False,
@@ -159,20 +169,30 @@ def _jax_side(seq, head, data):
                                              metrics.items()}
 
 
-def _as_port(seq, head, variables):
+def _as_port(block, seq, head, variables):
     """A port model holding a flax tree (parameters, gradients or
-    statistics) in the port's layout."""
-    return load_jax_variables(SedCnn(seq=seq, head=head, dropout=0.0, **SMALL),
-                              variables)
+    statistics) in the port's layout, every dropout at 0."""
+    model = SedCnn(block=block, seq=seq, head=head, dropout=0.0, **SMALL)
+    for layer in model.transformer or ():
+        layer.dropout = 0.0
+    return load_jax_variables(model, variables)
 
 
-@pytest.mark.parametrize("seq,head", [("gru", "att"), ("none", "avg")])
-def test_train_step_matches_jax(seq, head, data):
+@pytest.mark.parametrize("block,seq,head", [
+    pytest.param("conv", "gru", "att", id="gru-att"),
+    pytest.param("conv", "none", "avg", id="none-avg"),
+    pytest.param("glu", "none", "att", id="glu-none-att"),
+    pytest.param("conv", "transformer", "att", id="transformer-att"),
+])
+def test_train_step_matches_jax(block, seq, head, data, monkeypatch):
+    monkeypatch.setattr(jzoo, "TransformerEncoderLayer", functools.partial(
+        jzoo.TransformerEncoderLayer, dropout=0.0))
     cfg, _, bank, idx, y, scalar = data
-    init, after, jgrads, jmetrics = _jax_side(seq, head, data)
+    init, after, jgrads, jmetrics = _jax_side(block, seq, head, data)
 
-    model = _as_port(seq, head, init)
-    state = train.create_train_state(model, cfg, device="cpu")
+    model = _as_port(block, seq, head, init)
+    state = train.create_train_state(model, cfg, device="cpu",
+                                     warmup_steps=0, grad_clip=0.0)
     step = train.make_train_step(
         model, state, scalar=scalar, bank=torch.from_numpy(bank),
         wave_scale=SCALE, check_numerics=True,
@@ -188,23 +208,24 @@ def test_train_step_matches_jax(seq, head, data):
     assert int(metrics["nonfinite_count"]) == 0 == jmetrics["nonfinite_count"]
 
     # per-leaf gradients, JAX's carried into the port's layout
-    grad_model = _as_port(seq, head, {"params": jgrads,
-                                      "batch_stats": init["batch_stats"]})
+    grad_model = _as_port(block, seq, head, {"params": jgrads,
+                                             "batch_stats": init["batch_stats"]})
     want_g = dict(grad_model.named_parameters())
     total = float(metrics["grad_norm"])
     noise = set()
     for name, p in model.named_parameters():
         g, w = p.grad, want_g[name].detach()
         if float(w.norm()) < 1e-6 * total:
-            # zero in exact arithmetic (the attention bias: the softmax over
-            # time ignores a per-class constant): float32 noise on both sides
+            # zero in exact arithmetic (the attention biases: a softmax
+            # ignores a constant added to every logit): float32 noise on
+            # both sides
             assert float(g.norm()) < 1e-6 * total, name
             noise.add(name)
             continue
         assert float((g - w).norm()) <= 1e-4 * float(w.norm()), name
 
     # parameters and BatchNorm statistics after the step
-    want = _as_port(seq, head, after).state_dict()
+    want = _as_port(block, seq, head, after).state_dict()
     for name, v in model.state_dict().items():
         if "running" in name:
             np.testing.assert_allclose(v.numpy(), want[name].numpy(),
@@ -220,7 +241,7 @@ def test_train_step_matches_jax(seq, head, data):
                                    atol=1e-5, rtol=0, err_msg=name)
 
     # the eval step over the bank, after the update
-    jm = JaxSedCnn(seq=seq, head=head, dropout=0.0, **SMALL)
+    jm = JaxSedCnn(block=block, seq=seq, head=head, dropout=0.0, **SMALL)
     jeval = jtrain.make_eval_step(
         jm, scalar=scalar, bank=jnp.asarray(bank), wave_scale=SCALE,
         bank_frontend=jstft.make_logmel_bank_fn(
@@ -307,9 +328,107 @@ def test_waveform_batches_and_bank_without_kernel(data):
 
 
 def test_step_rejects_what_is_not_ported():
+    """The whole JAX step is ported: a SpecAugment step runs, its draws
+    come from the state's dropout generator (two states of one seed agree,
+    another seed differs, the global generator is untouched). What the step
+    still rejects is a model that is not the state's."""
+    x, y = _learnable_batch()
+
+    def step_for(seed):
+        model = SedCnn(**SMALL, generator=torch.Generator().manual_seed(0))
+        state = train.create_train_state(model, seed=seed, device="cpu")
+        return train.make_train_step(model, state, mixup_alpha=1.0,
+                                     use_spec_augment=True)
+
+    steps = [step_for(seed) for seed in (1, 1, 2)]
+    before = torch.random.get_rng_state()
+    losses_ = [[float(step(x, y)["loss"]) for _ in range(2)] for step in steps]
+    assert torch.equal(torch.random.get_rng_state(), before)
+    assert losses_[0] == losses_[1] != losses_[2]
     model = SedCnn(**SMALL)
     state = train.create_train_state(model, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        train.make_train_step(model, state, use_spec_augment=True)
     with pytest.raises(ValueError, match="state's model"):
         train.make_train_step(SedCnn(**SMALL), state)
+
+
+def _jax_draws(key, b, t, f):
+    """``jax.random``'s draws of JAX ``spec_augment`` on ``key`` (2 time
+    masks of up to 64 frames, 2 freq masks of up to 8 bins), replayed in
+    the port's ``[masks, B]`` layout."""
+    keys = iter(jax.random.split(key, 8))
+    out = []
+    for n, size, width in ((2, t, 64), (2, f, 8)):
+        starts, widths = [], []
+        for _ in range(n):
+            starts.append(np.asarray(jax.random.randint(
+                next(keys), (b, 1, 1), 0, max(1, size - width))).reshape(b))
+            widths.append(np.asarray(jax.random.randint(
+                next(keys), (b, 1, 1), 0, width + 1)).reshape(b))
+        out += [torch.from_numpy(np.stack(starts)).long(),
+                torch.from_numpy(np.stack(widths)).long()]
+    return out
+
+
+@pytest.mark.parametrize("frames", [101, 51])
+def test_spec_augment_matches_jax_on_replayed_draws(frames):
+    """``apply_spec_augment`` on JAX's own draws gives JAX's
+    ``spec_augment``: masked cells (the per-example mean of the unmasked
+    input) within 1e-6, every other cell exact. At 51 frames (< 64) every
+    time mask starts at 0."""
+    x = np.random.default_rng(4).standard_normal((3, frames, 64)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    want = np.asarray(jtrain.spec_augment(key, jnp.asarray(x)))
+    draws = _jax_draws(key, 3, frames, 64)
+    got = train.apply_spec_augment(torch.from_numpy(x), *draws).numpy()
+    masked = want != x
+    assert masked.any() and not masked.all()
+    np.testing.assert_array_equal(got[~masked], x[~masked])
+    np.testing.assert_allclose(got[masked], want[masked], atol=1e-6, rtol=0)
+    assert ((got != x) == masked).all()
+
+
+def test_spec_augment_draws_and_constant_input():
+    """Draw ranges are JAX's half-open ones; a constant input is a no-op
+    (the fill is the example's mean)."""
+    g = torch.Generator().manual_seed(0)
+    ts, tw, fs, fw = train.spec_augment_draws(512, 101, 64, g)
+    assert ts.shape == tw.shape == fs.shape == fw.shape == (2, 512)
+    assert (ts.min(), ts.max(), tw.min(), tw.max()) == (0, 36, 0, 64)
+    assert (fs.min(), fs.max(), fw.min(), fw.max()) == (0, 55, 0, 8)
+    assert not train.spec_augment_draws(4, 51, 64, g)[0].any()
+    x = torch.full((2, 101, 64), 5.0)
+    assert torch.equal(train.spec_augment(x, g), x)
+
+
+@pytest.mark.parametrize("block", ["conv", "glu"])
+def test_remat_step_equals_the_plain_step(block, tmp_path):
+    """``remat`` recomputes each block in the backward: the step's loss,
+    its BatchNorm running statistics (moved once, not twice) and its
+    gradients equal the plain step's (dropout 0.2, mixup and SpecAugment
+    on, drawn outside the recomputed blocks); the state_dict keys are the
+    same, so either checkpoint loads into the other model."""
+    x, y = _learnable_batch()
+    runs = []
+    for remat in (False, True):
+        model = SedCnn(classes_num=17, channels=(8, 16), block=block,
+                       remat=remat, generator=torch.Generator().manual_seed(0))
+        state = train.create_train_state(model, device="cpu")
+        step = train.make_train_step(model, state, mixup_alpha=1.0,
+                                     use_spec_augment=True)
+        loss = float(step(x, y)["loss"])
+        runs.append((loss, {n: p.grad.clone() for n, p in model.named_parameters()},
+                     {k: v.clone() for k, v in model.state_dict().items()}, state))
+    (l0, g0, s0, plain), (l1, g1, s1, remat) = runs
+    assert l0 == l1 and list(s0) == list(s1)
+    for k in s0:
+        if "running" in k:
+            assert torch.equal(s0[k], s1[k]), k
+    assert not torch.equal(s0["blocks.0.bns.0.running_mean" if block == "conv"
+                              else "blocks.0.bn_lin.0.running_mean"],
+                           torch.zeros(8))
+    for n in g0:
+        torch.testing.assert_close(g1[n], g0[n], rtol=1e-6, atol=0, msg=n)
+    path = checkpoints.save_checkpoint(str(tmp_path), remat)
+    checkpoints.load_checkpoint(path, plain)
+    for k, v in plain.model.state_dict().items():
+        assert torch.equal(v, remat.model.state_dict()[k]), k
