@@ -82,11 +82,26 @@ random weights, in phases that each raise on failure:
    2e-5, grad-norm 1e-4, BN statistics 1e-4) and, for GLU, remat on held to
    remat off; then ``main train`` of the Transformer with
    ``--augmentation=mixup_specaugment --remat`` (5 steps, evals at 0 and 5)
-   and ``inference`` in phase 8's workspace.
+   and ``inference`` in phase 8's workspace;
+10. ``runme.sh`` stages 1 and 4 (``runme_torch.sh``) at the DEFAULT config:
+   ``pack_synthetic`` writes 128/32/32 WAVs of 10 s; the threaded C++ decoder
+   (``csrc/sedx_native.cc``, built with g++) is built, and
+   ``calculate_feature_for_all_audio_files`` packs each split on the card
+   through it and with ``--no_native`` (the Python loader), then
+   ``calculate_scalar``: names and targets equal ``pack_synthetic``'s, the
+   int16 rows equal the WAVs' PCM bit for bit, both decoders pack the same
+   bits, one batch's features are within the bound above of the plain CPU
+   frontend on the same decoded rows, the waveform kernel launches
+   ⌈clips/32⌉ times a split and the plain frontend never; each split's wall
+   time and clips/s for both decoders, with the time of decoding alone, and
+   the host's share of one split's pack under the profiler; the testing
+   split rewritten at 44.1 kHz packs through both resamplers within 1 LSB
+   and 0.1 dB; then ``plot_results --table`` and ``runme.sh``'s plot on the
+   workspace of phases 8 and 9.
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
-``launches_cli`` of phase 8, ``launches_zoo`` of phase 9), then as its last
-line
+``launches_cli`` of phase 8, ``launches_zoo`` of phase 9, ``launches_runme``
+of phase 10), then as its last line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 when no CUDA device is available or any phase fails. It imports nothing of
 the JAX package.
@@ -1652,6 +1667,250 @@ def phase_zoo(torch, sedt, card, bank, targets, scale, ws):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: runme.sh stages 1 and 4
+# ---------------------------------------------------------------------------
+RESAMPLED_RATE = 44100
+SPLITS = {"training": CLI_TRAIN, "testing": CLI_TEST, "evaluation": CLI_EVAL}
+PACK_BATCH = 32                      # the subcommand's default --batch_size
+
+
+def _pcm16(path):
+    import wave
+
+    with wave.open(path, "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def _decode_s(decoder, paths, cfg):
+    """Host seconds to decode ``paths`` alone, as the subcommand does: the
+    native decoder in chunks of 64, or the Python loader file by file."""
+    from sound_event_detection_dcase2017_task4_torch import audio_io, native
+
+    t0 = time.perf_counter()
+    if decoder == "native":
+        for i in range(0, len(paths), 64):
+            native.load_wav_batch(paths[i:i + 64], cfg.sample_rate, cfg.clip_samples)
+    else:
+        for p in paths:
+            audio_io.load_wav(p, target_sr=cfg.sample_rate)
+    return time.perf_counter() - t0
+
+
+def _pack_batch_device_ms(torch, logmel_fn, rows, reps=5):
+    """The device's time for what a pack does with one batch — the copy of
+    ``rows`` to the card, the log-mel kernel, the copy of the features back
+    — each between CUDA events; medians over ``reps`` after a warm-up."""
+    times = []
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        x = torch.from_numpy(rows).to("cuda")
+        ev[1].record()
+        y = logmel_fn(x)
+        ev[2].record()
+        y.cpu()
+        ev[3].record()
+        torch.cuda.synchronize()
+        times.append([ev[i].elapsed_time(ev[i + 1]) for i in range(3)])
+    return [float(t) for t in np.median(times[1:], axis=0)]
+
+
+def phase_runme(torch, sedt, card, root, cli_ws):
+    """Phase 10 (see the module docstring) in workspaces under ``root``;
+    ``cli_ws`` is phase 8's workspace, which stage 4 reads. Returns the
+    waveform kernel's launches in the phase."""
+    import contextlib
+    import io
+
+    from sound_event_detection_dcase2017_task4_torch import (audio_io, features,
+                                                             native, plot_results)
+    from sound_event_detection_dcase2017_task4_torch.data.hdf5 import (load_scalar,
+                                                                       read_split)
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+
+    cfg = sedt.config.DEFAULT
+    ws = os.path.join(root, "runme")
+    dataset = os.path.join(ws, "synth_dataset")
+    t0 = time.perf_counter()
+    native.build()
+    print(f"[runme] built csrc/sedx_native.cc with g++ "
+          f"{' '.join(native.CXX_FLAGS + native.LINK_FLAGS)} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    launches = {}
+
+    def counted(tag, argv):
+        """Zero the waveform counter, run ``features.main(argv)`` on the
+        card, read the counter; returns the wall time."""
+        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        t0 = time.perf_counter()
+        features.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[tag] = logmel_cuda.LAUNCHES
+        if logmel_cuda.BANK_LAUNCHES:
+            raise AssertionError(f"{tag}: {logmel_cuda.BANK_LAUNCHES} bank launches")
+        return wall
+
+    def stage1(split, out_ws, dataset_dir, decoder):
+        tag = f"{split}_{decoder}_{os.path.basename(dataset_dir)}"
+        wall = counted(tag, [
+            "calculate_feature_for_all_audio_files", f"--dataset_dir={dataset_dir}",
+            f"--workspace={out_ws}", f"--data_type={split}", "--use_pallas",
+            *(["--no_native"] if decoder == "python" else [])])
+        want = -(-SPLITS[split] // PACK_BATCH)
+        if launches[tag] != want:
+            raise AssertionError(f"stage 1 {tag}: {launches[tag]} waveform "
+                                 f"launches, expected {want}")
+        return wall, read_split(os.path.join(out_ws, "features", f"{split}.h5"),
+                                load_waveform=True)
+
+    with _PlainGuard(torch, cfg) as guard:
+        # the WAVs (and pack_synthetic's own features, the reference for
+        # names and targets)
+        wall = counted("pack_synthetic", [
+            "pack_synthetic", f"--workspace={ws}", f"--num_train={CLI_TRAIN}",
+            f"--num_test={CLI_TEST}", f"--num_eval={CLI_EVAL}"])
+        print(f"[runme] pack_synthetic {CLI_TRAIN}/{CLI_TEST}/{CLI_EVAL} × 10 s "
+              f"with WAVs in {wall:.3f} s: {launches['pack_synthetic']} waveform "
+              "launches")
+
+        # stage 1, each split through both decoders
+        packed, walls = {}, {}
+        for split, n in SPLITS.items():
+            paths = [os.path.join(dataset, "audio", split, name) for name in
+                     read_split(os.path.join(ws, "features", f"{split}.h5")).audio_names]
+            line = []
+            for decoder in ("native", "python"):
+                out_ws = os.path.join(root, f"stage1_{decoder}")
+                wall, packed[split, decoder] = stage1(split, out_ws, dataset, decoder)
+                walls[split, decoder] = wall
+                dec = _decode_s(decoder, paths, cfg)
+                line.append(f"{'native' if decoder == 'native' else '--no_native'} "
+                            f"{wall:.3f} s ({n / wall:.2f} clips/s; decoding alone "
+                            f"{dec:.3f} s, {100 * dec / wall:.1f}%)")
+            print(f"[runme] stage 1 {split} ({n} × 10 s WAVs at {cfg.sample_rate} "
+                  f"Hz, batch {PACK_BATCH}, {launches[f'{split}_native_synth_dataset']}"
+                  f" waveform launches each): " + "; ".join(line) + f" [{card}]")
+
+        # what stage 1 wrote: pack_synthetic's names and targets, the WAVs'
+        # PCM, features of the card's kernel against the plain CPU frontend
+        for split in SPLITS:
+            ref = read_split(os.path.join(ws, "features", f"{split}.h5"))
+            got, alt = packed[split, "native"], packed[split, "python"]
+            if got.audio_names != ref.audio_names or not np.array_equal(
+                    got.target, ref.target):
+                raise AssertionError(f"{split}: names or targets differ from "
+                                     "pack_synthetic's")
+            raw = got.waveform.raw
+            if raw.dtype != np.int16 or got.waveform.scale != 2.0 ** -15:
+                raise AssertionError(f"{split}: waveform {raw.dtype}")
+            for name, row in zip(got.audio_names, raw):
+                pcm = _pcm16(os.path.join(dataset, "audio", split, name))
+                if len(pcm) != cfg.clip_samples or not np.array_equal(row, pcm):
+                    raise AssertionError(f"{split}/{name}: int16 row != the WAV's PCM")
+            if not (np.array_equal(raw, alt.waveform.raw)
+                    and np.array_equal(got.feature, alt.feature)):
+                raise AssertionError(f"{split}: --no_native packed other bits")
+        train = packed["training", "native"]
+        paths = [os.path.join(dataset, "audio", "training", name)
+                 for name in train.audio_names[:PACK_BATCH]]
+        rows = native.load_wav_batch(paths, cfg.sample_rate, cfg.clip_samples)
+        if not np.array_equal(rows, train.waveform.raw[:PACK_BATCH].astype(np.float32)
+                              * np.float32(2.0 ** -15)):
+            raise AssertionError("the decoded rows are not the stored PCM / 32768")
+        with torch.no_grad():
+            want = guard.plain["logmel"](torch.from_numpy(rows), cfg)
+        err, ok = _db_bound_ok(torch.from_numpy(np.array(train.feature[:PACK_BATCH])),
+                               want)
+        print(f"[runme] stage 1 checks: names and targets == pack_synthetic's; "
+              f"int16 rows == the WAVs' PCM bit for bit ({sum(SPLITS.values())} "
+              f"clips); --no_native packed the same bits; one batch of "
+              f"{PACK_BATCH} on the card vs the plain CPU frontend on the same "
+              f"decoded rows: max |Δ| {err:.3e} dB (limit 0.1, linear within "
+              "rtol 2e-3)")
+        if not ok:
+            raise AssertionError("stage 1 features disagree with the plain frontend")
+
+        # calculate_scalar on stage 1's training split
+        scalar_ws = os.path.join(root, "stage1_native")
+        wall = counted("calculate_scalar", ["calculate_scalar",
+                                            f"--workspace={scalar_ws}"])
+        mean, std = load_scalar(os.path.join(scalar_ws, "scalars", "training.h5"))
+        ref_mean, ref_std = load_scalar(os.path.join(ws, "scalars", "training.h5"))
+        d_scalar = max(float(np.abs(mean - ref_mean).max()),
+                       float(np.abs(std - ref_std).max()))
+        print(f"[runme] calculate_scalar {wall:.3f} s: mean/std vs pack_synthetic's "
+              f"(float clips, not PCM) max |Δ| {d_scalar:.3e} dB (limit 0.1)")
+        if mean.shape != (cfg.mel_bins,) or not d_scalar <= 0.1:
+            raise AssertionError("stage 1's scalar")
+
+        # the host's share of a pack: the device's work for a batch of 32
+        # (copy in, kernel, features out), each part between CUDA events
+        parts = _pack_batch_device_ms(torch, stft.make_logmel_fn(cfg), rows)
+        dev_ms = sum(parts)
+        print(f"[runme] the device's work for a batch of {PACK_BATCH} (CUDA events, "
+              f"median of 5): host→device copy {parts[0]:.4f} ms, kernel "
+              f"{parts[1]:.4f} ms, features back {parts[2]:.4f} ms; so the host's "
+              "share of each split's pack: " + ", ".join(
+                  f"{split} {100 * (1 - -(-n // PACK_BATCH) * dev_ms / (1e3 * walls[split, d])):.1f}%"
+                  f" ({'native' if d == 'native' else '--no_native'})"
+                  for split, n in SPLITS.items() for d in ("native", "python"))
+              + f" [{card}]")
+
+        # resampling: the testing split's WAVs rewritten at 44.1 kHz
+        ds44 = os.path.join(root, "ds44")
+        os.makedirs(os.path.join(ds44, "audio", "testing"))
+        os.makedirs(os.path.join(ds44, "metadata"))
+        shutil.copy(os.path.join(dataset, "metadata", "testing_set.csv"),
+                    os.path.join(ds44, "metadata"))
+        for name in packed["testing", "native"].audio_names:
+            x, _ = audio_io.load_wav(os.path.join(dataset, "audio", "testing", name))
+            audio_io.save_wav(os.path.join(ds44, "audio", "testing", name),
+                              audio_io.resample(x, cfg.sample_rate, RESAMPLED_RATE),
+                              RESAMPLED_RATE)
+        res = {d: stage1("testing", os.path.join(root, f"ds44_{d}"), ds44, d)
+               for d in ("native", "python")}
+        if any(guard.calls.values()):
+            raise AssertionError(f"plain frontend ran on the card: {guard.calls}")
+    (w_n, a), (w_p, b) = res["native"], res["python"]
+    lsb = int(np.abs(a.waveform.raw.astype(np.int32)
+                     - b.waveform.raw.astype(np.int32)).max())
+    d_db = float(np.abs(a.feature - b.feature).max())
+    print(f"[runme] stage 1 testing from {RESAMPLED_RATE} Hz WAVs: native "
+          f"{w_n:.3f} s ({CLI_TEST / w_n:.2f} clips/s), --no_native {w_p:.3f} s "
+          f"({CLI_TEST / w_p:.2f} clips/s); int16 rows within {lsb} LSB (limit "
+          f"1), features max |Δ| {d_db:.3e} dB (limit 0.1) [{card}]")
+    if not (lsb <= 1 and d_db <= 0.1):
+        raise AssertionError("the two resamplers disagree")
+
+    # stage 4 on the workspace of phases 8 and 9: the table, then runme.sh's
+    # plot (a text listing where matplotlib is missing)
+    png = os.path.join(root, "results.png")
+    outs = []
+    for argv in ([f"--workspace={cli_ws}", "--table"],
+                 [f"--workspace={cli_ws}", f"--out={png}"]):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            plot_results.main(argv)
+        outs.append(buf.getvalue())
+        for line in outs[-1].splitlines():
+            print(f"[runme] {line}")
+        print(f"[runme] plot_results {argv[1]}: {time.perf_counter() - t0:.3f} s")
+    table = [line for line in outs[0].splitlines() if line.startswith("| Cnn")]
+    if sorted(r.split(" | ")[0][2:] for r in table) != sorted((MODEL, ZOO[1])):
+        raise AssertionError(f"plot_results --table rows: {table}")
+    if ("plot → " in outs[1]) != os.path.isfile(png) or not outs[1].strip():
+        raise AssertionError("plot_results wrote neither a plot nor a listing")
+    print("[runme] stage 4: " + (f"a PNG of {os.path.getsize(png)} bytes"
+                                 if os.path.isfile(png)
+                                 else "the text listing (no matplotlib)"))
+    print(f"[runme] waveform kernel launches in the phase: "
+          f"{sum(launches.values())} ({', '.join(f'{k} {v}' for k, v in launches.items())})")
+    return sum(launches.values())
+
+
 def main() -> int:
     import torch
 
@@ -1674,9 +1933,10 @@ def main() -> int:
     try:
         cli, ws = phase_cli(torch, sedt, card, root)
         zoo = phase_zoo(torch, sedt, card, bank, targets, scale, ws)
+        del bank
+        kernel["launches_runme"] = phase_runme(torch, sedt, card, root, ws)
     finally:
         shutil.rmtree(root)
-    del bank
     kernel["launches_cli"] = cli["logmel"]
     bank_kernel["launches_cli"] = cli["logmel_bank"]
     kernel["launches_zoo"] = zoo["logmel"]

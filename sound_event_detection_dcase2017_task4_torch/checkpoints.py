@@ -14,7 +14,13 @@ and moved into place, so a reader never sees a torn file.
 
 :func:`import_jax_checkpoint` reads a JAX package ``.ckpt`` (flax msgpack)
 through a small msgpack decoder of the port's own — no ``msgpack`` package —
-and carries its ``params`` and ``batch_stats`` into a port model.
+and carries its ``params`` and ``batch_stats`` into a port model. So a run
+directory the JAX CLI trained can be inferred and served:
+:func:`find_checkpoint` and :func:`latest_checkpoint` see both suffixes
+(``.pth`` wins at equal iterations), :func:`load_model` reads either, and
+the ``.optjson`` sidecar of either is ``<iteration>_iterations.optjson``.
+Resuming training from a ``.ckpt`` is not supported (its optax state is
+not carried over).
 """
 
 from __future__ import annotations
@@ -29,12 +35,15 @@ import numpy as np
 import torch
 
 __all__ = ["save_checkpoint", "load_checkpoint", "load_model",
-           "latest_checkpoint", "load_opt_config", "check_opt_config",
-           "prune_checkpoints", "state_dict", "msgpack_restore",
-           "import_jax_checkpoint"]
+           "find_checkpoint", "latest_checkpoint", "load_opt_config",
+           "check_opt_config", "prune_checkpoints", "state_dict",
+           "msgpack_restore", "import_jax_checkpoint"]
 
 _FNAME = "{iteration}_iterations.pth"
 _RE = re.compile(r"^(\d+)_iterations\.pth$")
+# the port's own suffix first: it wins at equal iterations
+_SUFFIXES = (".pth", ".ckpt")
+_ANY_RE = re.compile(r"^(\d+)_iterations(\.pth|\.ckpt)$")
 
 
 def _atomic_write(path: str, write) -> None:
@@ -85,8 +94,10 @@ def save_checkpoint(directory: str, state, iteration: int | None = None,
 
 
 def _sidecar_path(ckpt_path: str) -> str:
-    return (ckpt_path[: -len(".pth")] if ckpt_path.endswith(".pth")
-            else ckpt_path) + ".optjson"
+    for suffix in _SUFFIXES:
+        if ckpt_path.endswith(suffix):
+            return ckpt_path[: -len(suffix)] + ".optjson"
+    return ckpt_path + ".optjson"
 
 
 def load_opt_config(ckpt_path: str) -> dict | None:
@@ -159,7 +170,10 @@ def load_checkpoint(path: str, state, opt_config: dict | None = None):
 
 
 def load_model(path: str, model: torch.nn.Module) -> torch.nn.Module:
-    """Fill ``model`` (on any device) from the checkpoint's model state."""
+    """Fill ``model`` (on any device) from the checkpoint's model state: a
+    port ``.pth`` or a JAX package ``.ckpt``."""
+    if path.endswith(".ckpt"):
+        return import_jax_checkpoint(path, model)
     model.load_state_dict(_load(path)["model"])
     return model
 
@@ -187,16 +201,29 @@ def prune_checkpoints(directory: str, keep: int,
     return deleted
 
 
-def latest_checkpoint(directory: str) -> str | None:
-    """Highest-iteration checkpoint path in ``directory`` (or None)."""
+def find_checkpoint(directory: str, iteration: int | None = None) -> str | None:
+    """The checkpoint of ``iteration`` in ``directory``:
+    ``<iteration>_iterations.pth``, else the JAX package's
+    ``<iteration>_iterations.ckpt``; with ``iteration=None`` the highest
+    iteration over both suffixes (``.pth`` at equal iterations). None when
+    there is no such file."""
+    if iteration is not None:
+        for suffix in _SUFFIXES:
+            path = os.path.join(directory, f"{int(iteration)}_iterations{suffix}")
+            if os.path.isfile(path):
+                return path
+        return None
     if not os.path.isdir(directory):
         return None
-    best, best_it = None, -1
-    for name in os.listdir(directory):
-        m = _RE.match(name)
-        if m and int(m.group(1)) > best_it:
-            best, best_it = os.path.join(directory, name), int(m.group(1))
-    return best
+    found = [(int(m.group(1)), -_SUFFIXES.index(m.group(2)), name)
+             for name in os.listdir(directory) if (m := _ANY_RE.match(name))]
+    return os.path.join(directory, max(found)[2]) if found else None
+
+
+def latest_checkpoint(directory: str) -> str | None:
+    """Highest-iteration checkpoint path in ``directory`` over both
+    suffixes, ``.pth`` at equal iterations (or None)."""
+    return find_checkpoint(directory)
 
 
 # ---------------------------------------------------------------------------

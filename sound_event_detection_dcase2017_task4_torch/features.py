@@ -1,13 +1,17 @@
-"""Feature-extraction CLI: synthetic corpus → per-split HDF5 (+ scalar).
+"""Feature-extraction CLI: metadata + audio → per-split HDF5 (+ scalar).
 
 Counterpart of ``sound_event_detection_dcase2017_task4_tpu/features.py``,
 with the same subcommands, flags and output layout::
 
     python -m sound_event_detection_dcase2017_task4_torch.features \\
-        pack_synthetic --workspace=$WORKSPACE --num_train=200 --num_test=40
+        calculate_feature_for_all_audio_files \\
+        --dataset_dir=$DATASET_DIR --workspace=$WORKSPACE --data_type=training
 
     python -m sound_event_detection_dcase2017_task4_torch.features \\
         calculate_scalar --workspace=$WORKSPACE
+
+    python -m sound_event_detection_dcase2017_task4_torch.features \\
+        pack_synthetic --workspace=$WORKSPACE --num_train=200 --num_test=40
 
 Features are computed in batches on the CUDA card by default, by the
 port's frontend (the hand-written log-mel kernel); ``main(argv,
@@ -16,38 +20,131 @@ tests do. ``--use_pallas`` is accepted for the JAX CLI's flag set: the card
 always runs the kernel. The files are written with the port's HDF5 codec
 (``data/h5.py``); h5py reads them.
 
-``calculate_feature_for_all_audio_files`` (DCASE WAVs through the threaded
-native decoder, ``native.py``) is not ported yet: its subcommand parses the
-JAX CLI's flags and raises ``NotImplementedError`` naming ROADMAP A12.
+``calculate_feature_for_all_audio_files`` reads
+``<dataset_dir>/metadata/<data_type>_set.csv`` (``filename<TAB>labels``
+rows, the labels separated by ``;`` or ``,``; see :func:`read_weak_metadata`)
+and decodes ``<dataset_dir>/audio/<data_type>/<filename>`` with the threaded
+C++ decoder (``native.py``), or with the Python loader (``audio_io``) under
+``--no_native``. A decoder that cannot be built raises: nothing falls back.
 
 ``pack_synthetic`` writes the DCASE metadata layout beside the features:
 ``<workspace>/synth_dataset/metadata/<data_type>_set.csv`` with
 ``filename<TAB>label1;label2`` rows (weak labels) and
 ``groundtruth_strong_label_<data_type>_set.csv`` with
-``filename<TAB>onset<TAB>offset<TAB>label`` rows (strong labels).
+``filename<TAB>onset<TAB>offset<TAB>label`` rows (strong labels); without
+``--metadata_only`` it writes the WAVs under ``audio/<data_type>/`` too.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
+from typing import List
 
 import numpy as np
 
-from .audio_io import save_wav
-from .config import DEFAULT, Config
+from . import native, resolve_device
+from .audio_io import load_wav, save_wav
+from .config import DEFAULT, Config, classes_num, lb_to_idx
 from .data.hdf5 import calculate_scalar, pack_waveforms_to_hdf5
 from .data.synth import make_synthetic_dataset
-from .utils import create_folder
+from .utils import create_folder, create_logging
 
-__all__ = ["calculate_feature_for_all_audio_files", "pack_synthetic", "main"]
+__all__ = ["read_weak_metadata", "calculate_feature_for_all_audio_files",
+           "pack_synthetic", "main"]
+
+
+def _parse_labels(labelstr: str) -> np.ndarray:
+    """Multi-hot vector from a label list string.
+
+    Separator is ``;`` when present, else ``,``. Comma-separated lists are
+    ambiguous because two DCASE class names contain commas ("Air horn,
+    truck horn", "Fire engine, fire truck (siren)") — fragments are
+    greedily re-merged against the known label set so both quoting styles
+    of the official metadata parse correctly.
+    """
+    tgt = np.zeros(classes_num, np.float32)
+    labelstr = labelstr.strip().strip('"')
+    sep = ";" if ";" in labelstr else ","
+    frags = [p.strip() for p in labelstr.split(sep)]
+    i = 0
+    while i < len(frags):
+        matched = False
+        # longest match first: a label may span several comma fragments
+        for j in range(len(frags), i, -1):
+            cand = ", ".join(frags[i:j])
+            if cand in lb_to_idx:
+                tgt[lb_to_idx[cand]] = 1.0
+                i = j
+                matched = True
+                break
+        if not matched:
+            i += 1                       # unknown fragment: skip
+    return tgt
+
+
+def read_weak_metadata(path: str) -> tuple[List[str], np.ndarray]:
+    """Parse weak-label metadata: ``filename<TAB or ,>labels(;|,-sep)``."""
+    names: List[str] = []
+    targets: List[np.ndarray] = []
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if not line or line.startswith("#"):
+                continue
+            parts = line.split("\t")
+            if len(parts) == 1:
+                parts = line.split(",", 1)
+            fname, labelstr = parts[0], parts[-1]
+            names.append(fname)
+            targets.append(_parse_labels(labelstr))
+    return names, np.stack(targets) if targets else np.zeros((0, classes_num))
 
 
 def calculate_feature_for_all_audio_files(args) -> None:
-    raise NotImplementedError(
-        "calculate_feature_for_all_audio_files needs the threaded native WAV "
-        "decoder (native.py), which is not ported yet (ROADMAP A12); pack a "
-        "corpus with pack_synthetic, or with the JAX package's CLI")
+    """Pack one split: decode the WAVs (the threaded C++ decoder, or the
+    Python loader with ``--no_native``), compute log-mel on ``args.device``
+    in batches and write ``<workspace>/features/<data_type>.h5``."""
+    dev = resolve_device(args.device)      # before any file is decoded
+    cfg = (DEFAULT if args.clip_seconds is None else Config(
+        clip_samples=int(DEFAULT.sample_rate * args.clip_seconds)))
+    workspace, data_type = args.workspace, args.data_type
+    meta_path = os.path.join(args.dataset_dir, "metadata",
+                             f"{data_type}_set.csv")
+    audio_dir = os.path.join(args.dataset_dir, "audio", data_type)
+    out_path = os.path.join(workspace, "features", f"{data_type}.h5")
+    create_folder(os.path.dirname(out_path))
+    logger = create_logging(os.path.join(workspace, "logs", "features"))
+
+    names, targets = read_weak_metadata(meta_path)
+    logger.info("%s: %d clips", data_type, len(names))
+    paths = [os.path.join(audio_dir, n) for n in names]
+
+    if args.no_native:
+        logger.info("audio ingest: python (--no_native)")
+
+        def waveforms():
+            for path in paths:
+                yield load_wav(path, target_sr=cfg.sample_rate)[0]
+    else:
+        native.build()                     # raises: no silent fallback
+        logger.info("audio ingest: C++ threaded")
+
+        def waveforms():
+            # the decoder's threads take a chunk of files at a time
+            chunk = max(args.batch_size, 64)
+            for i in range(0, len(paths), chunk):
+                yield from native.load_wav_batch(
+                    paths[i:i + chunk], cfg.sample_rate, cfg.clip_samples)
+
+    t0 = time.time()
+    pack_waveforms_to_hdf5(
+        waveforms(), names, targets, out_path, cfg,
+        store_waveform=not args.no_waveform, batch_size=args.batch_size,
+        waveform_dtype=args.waveform_dtype, device=dev)
+    logger.info("packed %s in %.1f s → %s", data_type, time.time() - t0,
+                out_path)
 
 
 def calculate_scalar_cmd(args) -> None:
@@ -111,25 +208,33 @@ def pack_synthetic(args) -> None:
 
 
 def main(argv=None, device=None) -> None:
-    """Run one subcommand; ``device`` is where ``pack_synthetic`` computes
-    features (``None`` → the CUDA card; raises when there is none)."""
+    """Run one subcommand; ``device`` is where the packing subcommands
+    compute features (``None`` → the CUDA card; raises when there is
+    none)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="mode", required=True)
 
     pa = sub.add_parser("calculate_feature_for_all_audio_files",
-                        help="not ported yet (ROADMAP A12)")
+                        help="decode a split's WAVs and pack its features")
     pa.add_argument("--dataset_dir", required=True)
     pa.add_argument("--workspace", required=True)
     pa.add_argument("--data_type", required=True,
                     choices=["training", "testing", "evaluation"])
     pa.add_argument("--batch_size", type=int, default=32)
     pa.add_argument("--clip_seconds", type=float, default=None)
-    pa.add_argument("--use_pallas", action="store_true")
+    pa.add_argument("--use_pallas", action="store_true",
+                    help="accepted for the JAX CLI's flag set; the card "
+                         "always runs the hand-written kernel")
     pa.add_argument("--no_waveform", action="store_true")
     pa.add_argument("--waveform_dtype", default="int16",
-                    choices=["int16", "float32"])
-    pa.add_argument("--no_native", action="store_true")
+                    choices=["int16", "float32"],
+                    help="storage dtype of the optional waveform dataset; "
+                         "int16 (+scale attr) halves disk and read "
+                         "bandwidth, lossless for 16-bit sources")
+    pa.add_argument("--no_native", action="store_true",
+                    help="decode with the Python loader (audio_io) instead "
+                         "of the threaded C++ decoder")
     pa.set_defaults(func=calculate_feature_for_all_audio_files)
 
     ps = sub.add_parser("calculate_scalar")

@@ -16,6 +16,9 @@ where ``<run-config> = model_type=?/loss_type=?/augmentation=?/batch_size=?``.
 Checkpoints are ``.pth`` files (``checkpoints.py``); statistics, prediction
 and threshold pickles have the JAX package's schema, so either package's
 metrics and threshold subcommands read the other's predictions.
+``inference`` also reads a run the JAX CLI trained: with no ``.pth`` for
+the iteration asked, it loads the JAX ``<iter>_iterations.ckpt`` and adopts
+its ``.optjson`` recipe. ``train --resume_iteration`` takes only a ``.pth``.
 
 Everything runs on the CUDA card unless the caller asks for the CPU:
 ``main(argv, device="cpu")``, as the tests do. ``--cuda`` is accepted for
@@ -155,12 +158,10 @@ def _build(args, for_train: bool):
                    if os.path.isfile(test_path) else None)
 
     if getattr(args, "mini_data", 0):
-        n = args.mini_data
-        train_reader.audio_names = train_reader.audio_names[:n]
-        train_reader.target = train_reader.target[:n]
-        train_reader.feature = train_reader.feature[:n]
-        if train_reader.waveform is not None:
-            train_reader.waveform = train_reader.waveform[:n]
+        # a row subset keeps an int16 waveform's .raw/.scale, so the
+        # int16 transport and staging survive (a slice would decode it)
+        train_reader = subset_reader(
+            train_reader, np.arange(min(args.mini_data, len(train_reader))))
 
     # --holdout_fold=k: fold k of the training split is the validation set
     holdout = _holdout_fold(args)
@@ -216,8 +217,13 @@ def _build(args, for_train: bool):
     bankable = (feature_source == "logmel"
                 or (feature_source == "waveform"
                     and train_reader.waveform is not None))
+    mode = getattr(args, "device_cache", "auto")
+    if for_train and not in_memory and bankable and mode == "on":
+        logging.getLogger().warning(
+            "device cache: --device_cache=on is ignored with --lazy_data — "
+            "the lazy readers keep the corpus on disk and read each batch, "
+            "so nothing is staged on the device")
     if for_train and in_memory and bankable:
-        mode = getattr(args, "device_cache", "auto")
         cap = int(os.environ.get("SEDX_DEVICE_CACHE_MAX_BYTES",
                                  _default_cache_cap(dev)))
         if feature_source == "logmel":
@@ -319,9 +325,21 @@ def do_train(args) -> dict:
     logger = create_logging(paths["logs"])
     logger.info("train: %s", vars(args))
 
-    ckpt = os.path.join(paths["checkpoints"],
-                        f"{args.resume_iteration}_iterations.pth")
     if args.resume_iteration > 0:
+        ckpt = checkpoints.find_checkpoint(paths["checkpoints"],
+                                           args.resume_iteration)
+        if ckpt is None:
+            raise FileNotFoundError(
+                f"no checkpoint for iteration {args.resume_iteration} under "
+                f"{paths['checkpoints']}")
+        if ckpt.endswith(".ckpt"):
+            raise ValueError(
+                f"--resume_iteration={args.resume_iteration}: only the JAX "
+                f"package's checkpoint {ckpt} exists, and resuming from a JAX "
+                "checkpoint is not supported: its optax optimizer state is not "
+                "carried over, and its .datastate.pkl is the prefetch thread's "
+                "look-ahead position, not the next batch's. Infer or serve "
+                "it, or train from scratch.")
         # a run resumes with no optimizer flags re-passed
         _adopt_ckpt_opt_config(args, ckpt)
     ctx = _build(args, for_train=True)
@@ -490,13 +508,11 @@ def _resolve_ckpt(args, paths) -> str:
             except ValueError:
                 raise SystemExit(
                     f"--iteration must be an integer or 'best', got {it!r}")
-    if it is not None:
-        ckpt = os.path.join(paths["checkpoints"], f"{int(it)}_iterations.pth")
-    else:
-        ckpt = checkpoints.latest_checkpoint(paths["checkpoints"])
+    ckpt = checkpoints.find_checkpoint(paths["checkpoints"], it)
     if ckpt is None:
         raise FileNotFoundError(
-            f"no checkpoint under {paths['checkpoints']}")
+            f"no checkpoint under {paths['checkpoints']}"
+            + ("" if it is None else f" for iteration {it}"))
     return ckpt
 
 
@@ -521,8 +537,12 @@ def do_inference(args) -> None:
     ckpt = _resolve_ckpt(args, paths)
     _adopt_ckpt_opt_config(args, ckpt)
     ctx = _build(args, for_train=False)
-    checkpoints.load_checkpoint(ckpt, ctx["state"],
-                                opt_config=ctx["opt_config"])
+    if ckpt.endswith(".ckpt"):           # trained by the JAX package's CLI
+        checkpoints.check_opt_config(ckpt, ctx["opt_config"])
+        checkpoints.import_jax_checkpoint(ckpt, ctx["state"].model)
+    else:
+        checkpoints.load_checkpoint(ckpt, ctx["state"],
+                                    opt_config=ctx["opt_config"])
     data_type = args.data_type
 
     if data_type in ("testing", "validate", "test"):

@@ -71,11 +71,12 @@ class Predictor:
                        sed_params: Optional[dict] = None,
                        dtype: torch.dtype = torch.float32,
                        device=None) -> "Predictor":
-        """Serve a training run of the port's CLI: the latest checkpoint,
-        the given ``iteration``, or ``"best"`` — the eval iteration with the
-        highest test-split mAP in the run's statistics (the CLI's
-        ``--iteration best``). ``run_config`` is the path segment after
-        ``model_type=…``, e.g.
+        """Serve a training run of the port's CLI or the JAX package's
+        (``.pth`` or ``.ckpt``, ``checkpoints.find_checkpoint``): the latest
+        checkpoint, the given ``iteration``, or ``"best"`` — the eval
+        iteration with the highest test-split mAP in the run's statistics
+        (the CLI's ``--iteration best``). ``run_config`` is the path segment
+        after ``model_type=…``, e.g.
         ``"loss_type=clip_bce/augmentation=mixup/batch_size=32"``. The
         scalar comes from ``scalars/training.h5``; ``dtype`` is the compute
         type (parameters stay float32); ``device=None`` is the CUDA card.
@@ -97,14 +98,15 @@ class Predictor:
                                  f"model_type={model_type}", run_config,
                                  "statistics.pickle")
             iteration, _, _ = best_iteration(stats)
-            latest = checkpoints.latest_checkpoint(ckpt_dir)
-            pinned = latest is None or not latest.endswith(
-                f"{os.sep}{iteration}_iterations.pth")
-        path = (os.path.join(ckpt_dir, f"{iteration}_iterations.pth")
-                if iteration is not None
-                else checkpoints.latest_checkpoint(ckpt_dir))
+            # both resolve by the same rule: equal paths, equal iterations
+            latest = checkpoints.find_checkpoint(ckpt_dir)
+            pinned = latest is None or latest != checkpoints.find_checkpoint(
+                ckpt_dir, iteration)
+        path = checkpoints.find_checkpoint(ckpt_dir, iteration)
         if path is None:
-            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+            raise FileNotFoundError(
+                f"no checkpoint under {ckpt_dir}"
+                + ("" if iteration is None else f" for iteration {iteration}"))
         checkpoints.load_model(path, model)
         scalar = load_scalar(os.path.join(workspace, "scalars", "training.h5"))
         if sed_params is None:

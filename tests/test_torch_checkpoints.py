@@ -200,3 +200,38 @@ def test_latest_and_prune(tmp_path):
     assert checkpoints.prune_checkpoints(d, 0) == []
     assert checkpoints.latest_checkpoint(str(tmp_path / "missing")) is None
     assert not [n for n in left if n.endswith(".tmp")]
+
+
+def test_find_checkpoint_over_both_suffixes(tmp_path):
+    """A run directory holding the port's ``.pth`` and the JAX package's
+    ``.ckpt``: an iteration takes its ``.pth``, else its ``.ckpt``; the
+    latest is the highest iteration over both, the ``.pth`` at a tie; each
+    suffix's sidecar is ``<it>_iterations.optjson``."""
+    d = str(tmp_path)
+    for name in ("10_iterations.pth", "10_iterations.ckpt", "20_iterations.ckpt",
+                 "5_iterations.pth", "20_iterations.datastate.pkl",
+                 "30_iterations.ckpt.tmp", "nonfinite_abort_40.pth.debug"):
+        open(os.path.join(d, name), "wb").close()
+    find = checkpoints.find_checkpoint
+    assert find(d, 10) == os.path.join(d, "10_iterations.pth")
+    assert find(d, 20) == os.path.join(d, "20_iterations.ckpt")
+    assert find(d, 5) == os.path.join(d, "5_iterations.pth")
+    assert find(d, 30) is None and find(d, 7) is None
+    assert find(d) == checkpoints.latest_checkpoint(d) == os.path.join(
+        d, "20_iterations.ckpt")
+    open(os.path.join(d, "20_iterations.pth"), "wb").close()
+    assert find(d) == os.path.join(d, "20_iterations.pth")
+    os.unlink(os.path.join(d, "20_iterations.pth"))
+    os.unlink(os.path.join(d, "20_iterations.ckpt"))
+    assert find(d) == os.path.join(d, "10_iterations.pth")
+    os.unlink(os.path.join(d, "10_iterations.pth"))
+    assert find(d) == os.path.join(d, "10_iterations.ckpt")
+    assert find(str(tmp_path / "missing")) is None
+    assert find(str(tmp_path / "missing"), 3) is None
+    for suffix in (".pth", ".ckpt"):
+        assert checkpoints._sidecar_path(
+            os.path.join(d, f"10_iterations{suffix}")) == os.path.join(
+                d, "10_iterations.optjson")
+    # pruning touches only the port's own checkpoints
+    assert checkpoints.prune_checkpoints(d, 1) == []
+    assert os.path.isfile(os.path.join(d, "10_iterations.ckpt"))

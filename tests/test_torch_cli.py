@@ -11,7 +11,11 @@ device="cpu")``:
 * ``DataGenerator`` streams equal the JAX package's over three epochs and
   their ``state_dict``s are interchangeable;
 * a JAX ``.ckpt`` imported by the port, then the port's ``inference``, gives
-  the JAX CLI's predictions within 1e-5; on the JAX CLI's predictions pickle
+  the JAX CLI's predictions within 1e-5, and so does the port's
+  ``inference`` on a workspace that holds only the JAX run's ``.ckpt`` and
+  ``.optjson`` (adopted; a mismatched flag raises; a resume from it raises);
+  ``Predictor.from_workspace`` serves that run as JAX's does (1e-5, events
+  exact); on the JAX CLI's predictions pickle
   the port's ``calculate_metrics``, ``optimize_at_thresholds`` and
   ``optimize_sed_thresholds`` give the same metrics JSON (1e-12), the same
   submission TSV bytes and the same threshold pickles;
@@ -20,7 +24,10 @@ device="cpu")``:
   identically; ``--check_numerics`` aborts; ``Predictor.from_workspace``
   serves the checkpoints it should;
 * the GLU and Transformer models, ``--remat`` and SpecAugment train; a
-  Transformer run's ``.optjson`` recipe is adopted with no flags passed.
+  Transformer run's ``.optjson`` recipe is adopted with no flags passed;
+* ``--mini_data`` keeps the int16 transport, ``--device_cache=on`` with
+  ``--lazy_data`` warns, and both packages' ``plot_results`` print the same
+  tables.
 """
 
 import argparse
@@ -35,7 +42,8 @@ import pytest
 import torch
 
 from sound_event_detection_dcase2017_task4_torch import (audio_io, checkpoints,
-                                                         features, main, serving,
+                                                         features, main,
+                                                         plot_results, serving,
                                                          train)
 from sound_event_detection_dcase2017_task4_torch.config import Config
 from sound_event_detection_dcase2017_task4_torch.data import generator, hdf5, synth
@@ -45,7 +53,9 @@ from sound_event_detection_dcase2017_task4_tpu import checkpoints as jckpt
 from sound_event_detection_dcase2017_task4_tpu import config as jconfig
 from sound_event_detection_dcase2017_task4_tpu import features as jfeatures
 from sound_event_detection_dcase2017_task4_tpu import main as jmain
+from sound_event_detection_dcase2017_task4_tpu import plot_results as jplot_results
 from sound_event_detection_dcase2017_task4_tpu import runtime as jruntime
+from sound_event_detection_dcase2017_task4_tpu import serving as jserving
 from sound_event_detection_dcase2017_task4_tpu import train as jtrain
 from sound_event_detection_dcase2017_task4_tpu.data import generator as jgenerator
 from sound_event_detection_dcase2017_task4_tpu.data import hdf5 as jhdf5
@@ -244,8 +254,10 @@ def test_run_config_and_paths_match_jax(kw):
 @pytest.fixture(scope="module")
 def cross(jax_ws, tmp_path_factory):
     """A JAX checkpoint and the JAX CLI's testing predictions from it; the
-    same weights imported into the port, saved as a port checkpoint and
-    run through the port's inference in a workspace sharing the corpus."""
+    port's inference on the same weights in two workspaces sharing the
+    corpus: ``"converted"`` holds them imported by hand and saved as a port
+    checkpoint, ``"ckpt"`` only a copy of the JAX run's checkpoint
+    directory (the ``.ckpt`` and its ``.optjson``)."""
     jckpt_dir = os.path.join(jax_ws, "checkpoints", "main", _rc())
     jmodel = jget_model(MODEL)
     state, _ = jtrain.create_train_state(
@@ -264,21 +276,82 @@ def cross(jax_ws, tmp_path_factory):
     st = train.create_train_state(model, device="cpu")
     checkpoints.save_checkpoint(os.path.join(ws, "checkpoints", "main", _rc()), st,
                                 0, opt_config=train.resolve_opt_config(model))
-    main.main(["inference", f"--workspace={ws}", *COMMON, "--data_type=testing"],
-              device="cpu")
-    with open(os.path.join(ws, "predictions", "main", _rc(), "testing.pickle"),
-              "rb") as f:
-        pred = pickle.load(f)
-    return jax_ws, ws, jpred, pred
+    ws_ckpt = _fresh(jax_ws, str(tmp_path_factory.mktemp("cross") / "ws_ckpt"))
+    shutil.copytree(jckpt_dir, os.path.join(ws_ckpt, "checkpoints", "main", _rc()))
+    assert sorted(os.listdir(jckpt_dir)) == ["0_iterations.ckpt",
+                                             "0_iterations.optjson"]
+    preds = {}
+    for how, w in (("converted", ws), ("ckpt", ws_ckpt)):
+        main.main(["inference", f"--workspace={w}", *COMMON, "--data_type=testing"],
+                  device="cpu")
+        with open(os.path.join(w, "predictions", "main", _rc(), "testing.pickle"),
+                  "rb") as f:
+            preds[how] = pickle.load(f)
+    return jax_ws, {"converted": ws, "ckpt": ws_ckpt}, jpred, preds
 
 
-def test_jax_checkpoint_inference_matches_jax(cross):
-    _, _, jpred, pred = cross
+@pytest.mark.parametrize("how", ["converted", "ckpt"])
+def test_jax_checkpoint_inference_matches_jax(cross, how):
+    _, _, jpred, preds = cross
+    pred = preds[how]
     assert pred["audio_name"] == jpred["audio_name"]
     np.testing.assert_array_equal(pred["target"], jpred["target"])
     for k in ("clipwise_output", "framewise_output"):
         assert pred[k].shape == np.asarray(jpred[k]).shape and pred[k].dtype == np.float32
         np.testing.assert_allclose(pred[k], jpred[k], atol=1e-5, rtol=0)
+
+
+def test_from_workspace_serves_a_jax_run(cross):
+    jax_ws, wss, _, _ = cross
+    run_config = os.path.relpath(_rc(), f"model_type={MODEL}")
+    wave = np.random.default_rng(4).standard_normal((3, 16000)).astype(np.float32) * 0.1
+    theirs = jserving.Predictor.from_workspace(
+        jax_ws, MODEL, run_config, cfg=jconfig.Config(clip_samples=16000))
+    want, want_events = theirs(wave), theirs.detect_events(wave)
+    for iteration in (None, 0):
+        mine = serving.Predictor.from_workspace(
+            wss["ckpt"], MODEL, run_config, cfg=Config(clip_samples=16000),
+            iteration=iteration, device="cpu")
+        got = mine(wave)
+        for k in ("clipwise_output", "framewise_output"):
+            np.testing.assert_allclose(got[k], want[k], atol=1e-5, rtol=0)
+        np.testing.assert_array_equal(got["event_activity"], want["event_activity"])
+        assert mine.detect_events(wave) == want_events
+    with pytest.raises(FileNotFoundError, match="iteration 5"):
+        serving.Predictor.from_workspace(wss["ckpt"], MODEL, run_config,
+                                         iteration=5, device="cpu")
+
+
+def test_a_jax_checkpoints_sidecar_is_adopted_and_resume_raises(cross, tmp_path):
+    """The ``.ckpt``'s ``.optjson`` is ``<it>_iterations.optjson``: the
+    port adopts its recipe with no flags passed and raises on a structural
+    mismatch; ``train --resume_iteration`` refuses a JAX checkpoint."""
+    jax_ws, _, _, _ = cross
+    ws = _fresh(jax_ws, str(tmp_path / "ws"))
+    d = os.path.join(ws, "checkpoints", "main", _rc())
+    os.makedirs(d)
+    src = os.path.join(jax_ws, "checkpoints", "main", _rc(), "0_iterations.ckpt")
+    recipe = {"learning_rate": 5e-4, "warmup_steps": 7, "grad_clip": 0.25}
+    for it in (0, 3):
+        shutil.copy(src, os.path.join(d, f"{it}_iterations.ckpt"))
+        with open(os.path.join(d, f"{it}_iterations.optjson"), "w") as f:
+            json.dump(recipe, f)
+    ckpt = os.path.join(d, "3_iterations.ckpt")
+    assert checkpoints.load_opt_config(ckpt) == jckpt.load_opt_config(ckpt) == recipe
+    args = argparse.Namespace(learning_rate=None, warmup_steps=None, grad_clip=None)
+    main._adopt_ckpt_opt_config(args, ckpt)
+    assert vars(args) == recipe
+    cpu = lambda argv: main.main(argv, device="cpu")      # noqa: E731
+    cpu(["inference", f"--workspace={ws}", *COMMON, "--data_type=testing"])
+    with pytest.raises(ValueError, match="optimizer config mismatch"):
+        cpu(["inference", f"--workspace={ws}", *COMMON, "--warmup_steps=99",
+             "--data_type=testing"])
+    with pytest.raises(ValueError, match="resuming from a JAX checkpoint"):
+        cpu(["train", f"--workspace={ws}", *COMMON, "--resume_iteration=3",
+             "--stop_iteration=4"])
+    with pytest.raises(FileNotFoundError, match="iteration 2"):
+        cpu(["train", f"--workspace={ws}", *COMMON, "--resume_iteration=2",
+             "--stop_iteration=4"])
 
 
 def _json_close(a, b):
@@ -475,10 +548,11 @@ def test_defaults_to_the_card_and_unported_options(port_ws, tmp_path):
         main.main(["train", f"--workspace={ws}", *COMMON, "--stop_iteration=1"])
     with pytest.raises(RuntimeError, match="CUDA"):
         features.main([PACK[0], f"--workspace={tmp_path / 'p'}", *PACK[1:]])
-    with pytest.raises(NotImplementedError, match="A12"):
+    # stage 1 from WAVs needs the card too, and says so before reading a file
+    with pytest.raises(RuntimeError, match="CUDA"):
         features.main(["calculate_feature_for_all_audio_files",
                        f"--workspace={ws}", "--dataset_dir=/nowhere",
-                       "--data_type=training"], device="cpu")
+                       "--data_type=training"])
     # what once raised trains a step on the CPU: SpecAugment, --remat and
     # the GLU and Transformer models (full width, 0.5 s clips)
     for extra in (["--augmentation=specaugment"], ["--remat"],
@@ -538,3 +612,97 @@ def test_holdout_and_lazy_inference_build(port_ws):
     assert isinstance(ctx["train_reader"].feature, np.memmap)     # stays lazy
     ctx = main._build(args(data_type="training"), for_train=False)
     assert not isinstance(ctx["train_reader"].feature, np.memmap)
+
+
+def _train_args(ws, **over):
+    base = dict(workspace=ws, device=torch.device("cpu"), model_type=MODEL,
+                loss_type="clip_bce", augmentation="mixup", batch_size=4,
+                learning_rate=None, warmup_steps=None, grad_clip=None, seed=1,
+                mini_data=0, holdout_fold=None, feature_source="waveform",
+                no_pallas=False, dtype="f32", remat=False, lazy_data=False,
+                device_cache="on", check_numerics=False)
+    return argparse.Namespace(**{**base, **over})
+
+
+def _staged(monkeypatch, args):
+    """Build ``args``; returns the context and each staged bank array."""
+    banks, prepare = [], main.stft.prepare_chunks
+
+    def recording(x, cfg):
+        banks.append(prepare(x, cfg))
+        return banks[-1]
+
+    monkeypatch.setattr(main.stft, "prepare_chunks", recording)
+    ctx = main._build(args, for_train=True)
+    monkeypatch.undo()
+    return ctx, banks[-2:] if ctx["use_bank"] else []
+
+
+def test_mini_data_keeps_the_int16_transport(port_ws, tmp_path, monkeypatch):
+    """``--mini_data=8`` stages an int16 bank of the same bytes a clip as
+    the whole corpus (a float32 one took 2×), and on an 8-clip corpus its
+    batches, host-fed and staged, equal those of the build without it."""
+    full, full_banks = _staged(monkeypatch, _train_args(port_ws))
+    mini, mini_banks = _staged(monkeypatch, _train_args(port_ws, mini_data=8))
+    assert full["gen"].raw_int16 and mini["gen"].raw_int16 and mini["use_bank"]
+    assert len(mini["train_reader"]) == 8
+    per_clip = {(b.dtype, b.nbytes // b.shape[0]) for b in full_banks + mini_banks}
+    assert per_clip == {(np.dtype(np.int16), 87040)}, per_clip   # 2x as float32
+    np.testing.assert_array_equal(mini_banks[0], full_banks[0][:8])
+
+    ws8 = str(tmp_path / "ws8")
+    features.main(["pack_synthetic", f"--workspace={ws8}", "--num_train=8",
+                   "--num_test=4", "--num_eval=4", "--clip_seconds=0.5",
+                   "--metadata_only"], device="cpu")
+    (a, a_banks), (b, b_banks) = (_staged(monkeypatch, _train_args(ws8, **kw))
+                                  for kw in ({}, {"mini_data": 8}))
+    for x, y in zip(a_banks, b_banks):
+        np.testing.assert_array_equal(x, y)
+    for indices in (True, False):
+        sa = a["gen"].generate_train(yield_indices=indices)
+        sb = b["gen"].generate_train(yield_indices=indices)
+        for _ in range(5):                           # past an epoch
+            (xa, ya), (xb, yb) = next(sa), next(sb)
+            assert xa.dtype == xb.dtype and (indices or xa.dtype == np.int16)
+            np.testing.assert_array_equal(xa, xb)
+            np.testing.assert_array_equal(ya, yb)
+
+
+def test_device_cache_on_with_lazy_data_warns(port_ws, caplog):
+    with caplog.at_level("WARNING"):
+        ctx = main._build(_train_args(port_ws, lazy_data=True), for_train=True)
+    assert not ctx["use_bank"]
+    msgs = [r.getMessage() for r in caplog.records if r.levelname == "WARNING"]
+    assert any("--device_cache=on" in m and "--lazy_data" in m for m in msgs), msgs
+    caplog.clear()
+    with caplog.at_level("WARNING"):
+        main._build(_train_args(port_ws, lazy_data=True, device_cache="auto"),
+                    for_train=True)
+    assert not [r for r in caplog.records if "--lazy_data" in r.getMessage()]
+
+
+def test_plot_results_prints_what_jax_prints(port_ws, tmp_path, capsys,
+                                             monkeypatch):
+    """``--table`` and the text fallback (matplotlib hidden) of both
+    packages on the same ``statistics.pickle``s: two model types, evals
+    at 0, 1 and 2."""
+    ws = _fresh(port_ws, str(tmp_path / "ws"))
+    main.main(["train", f"--workspace={ws}", *COMMON, "--stop_iteration=2",
+               "--eval_interval=1", "--eval_max_iteration=1"], device="cpu")
+    stats = os.path.join(ws, "statistics", "main")
+    shutil.copytree(os.path.join(stats, f"model_type={MODEL}"),
+                    os.path.join(stats, "model_type=Cnn_9layers_AvgPooling"))
+    monkeypatch.setitem(__import__("sys").modules, "matplotlib", None)
+    runs = [["--table"], [], ["--metric=sed.f_measure"],
+            ["--metric=at.f1.Car", "--data_type=train"],
+            ["--metric=sed.class_wise.Train_horn.f_measure"],
+            ["--model_types", MODEL, "--table"]]
+    for flags in runs:
+        out = []
+        for mod in (plot_results, jplot_results):
+            mod.main([f"--workspace={ws}", *flags])
+            out.append(capsys.readouterr().out)
+        assert out[0] == out[1], flags
+        assert len(out[0].splitlines()) >= 3, (flags, out[0])
+    with pytest.raises(SystemExit, match="no statistics"):
+        plot_results.main([f"--workspace={tmp_path / 'empty'}"])

@@ -9,8 +9,9 @@ int16/float32 corpus bank) is held to its plain PyTorch version on the card
 (TF32 off): 0.1 dB absolute and rtol 2e-3 in the linear domain; the int16
 bank launch is bit-equal to the waveform launch on the decoded rows. The
 CLI trains on the card through the bank kernel (device cache on) and the
-waveform kernel (off); the GLU and Transformer steps match the CPU's. This
-file imports nothing of the JAX package.
+waveform kernel (off); the GLU and Transformer steps match the CPU's;
+``calculate_feature_for_all_audio_files`` packs WAVs through the waveform
+kernel as the CPU does. This file imports nothing of the JAX package.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 
 from sound_event_detection_dcase2017_task4_torch import (config, features,
                                                          main, serving, train)
+from sound_event_detection_dcase2017_task4_torch.data import hdf5
 from sound_event_detection_dcase2017_task4_torch.models import SedCnn
 from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
 
@@ -225,3 +227,29 @@ def test_cli_trains_through_the_kernels(cuda, tmp_path, mode):
     launches = (logmel_cuda.BANK_LAUNCHES - b1, logmel_cuda.LAUNCHES - b2)
     assert launches == ((8, 0) if mode == "on" else (0, 8))
     assert run["iteration"] == 4 and np.isfinite(run["loss"])
+
+
+def test_wav_packing_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """Stage 1 from WAVs (the native decoder) on the card and on the CPU:
+    the same names, targets and int16 rows; features within 0.1 dB; one
+    waveform kernel launch per batch on the card."""
+    ws = str(tmp_path / "ws")
+    features.main(["pack_synthetic", f"--workspace={ws}", "--num_train=6",
+                   "--num_test=2", "--num_eval=2", "--clip_seconds=0.5"])
+    packed = {}
+    for dev in ("cuda", "cpu"):
+        before = logmel_cuda.LAUNCHES
+        features.main(["calculate_feature_for_all_audio_files",
+                       f"--dataset_dir={ws}/synth_dataset",
+                       f"--workspace={tmp_path / dev}", "--data_type=training",
+                       "--batch_size=4", "--clip_seconds=0.5"],
+                      device=None if dev == "cuda" else "cpu")
+        torch.cuda.synchronize()
+        assert logmel_cuda.LAUNCHES - before == (2 if dev == "cuda" else 0)
+        packed[dev] = hdf5.read_split(str(tmp_path / dev / "features" / "training.h5"),
+                                      load_waveform=True)
+    gpu, cpu = packed["cuda"], packed["cpu"]
+    assert gpu.audio_names == cpu.audio_names and len(gpu) == 6
+    np.testing.assert_array_equal(gpu.target, cpu.target)
+    np.testing.assert_array_equal(gpu.waveform.raw, cpu.waveform.raw)
+    np.testing.assert_allclose(gpu.feature, cpu.feature, atol=0.1, rtol=0)

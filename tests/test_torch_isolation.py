@@ -4,9 +4,13 @@ package, nor h5py, scikit-learn or msgpack.
 Subprocesses import the port, serve one CPU request and take one CPU train
 step over an int16 bank (after checking that ``create_train_state`` with no
 device raises without a card), and run the CLI on the CPU (``features
-pack_synthetic``, ``main train`` → ``inference`` → ``calculate_metrics``),
-then check ``sys.modules``; a source scan checks every module of the port
-and ``chip_smoke.py`` for such imports.
+pack_synthetic`` with WAVs, ``calculate_feature_for_all_audio_files``
+through the native decoder, ``main train`` → ``inference`` →
+``calculate_metrics``, ``plot_results --table``), then check
+``sys.modules``; a source scan checks every module of the port and
+``chip_smoke.py`` for such imports. The port ships its own copy of the
+native decoder's source, and ``runme_torch.sh`` is ``runme.sh`` with the
+port's package.
 """
 
 import ast
@@ -63,17 +67,22 @@ def test_the_cli_pipeline_loads_no_jax_h5py_sklearn_or_msgpack(tmp_path):
     ws = str(tmp_path / "ws")
     code = (
         "import sys\n"
-        "from sound_event_detection_dcase2017_task4_torch import features, main\n"
+        "from sound_event_detection_dcase2017_task4_torch import (\n"
+        "    features, main, plot_results)\n"
         f"ws = {ws!r}\n"
         "features.main(['pack_synthetic', f'--workspace={ws}', '--num_train=8',\n"
-        "               '--num_test=4', '--num_eval=4', '--clip_seconds=0.5',\n"
-        "               '--metadata_only'], device='cpu')\n"
+        "               '--num_test=4', '--num_eval=4', '--clip_seconds=0.5'],\n"
+        "              device='cpu')\n"
+        "features.main(['calculate_feature_for_all_audio_files',\n"
+        "               f'--dataset_dir={ws}/synth_dataset', f'--workspace={ws}',\n"
+        "               '--data_type=testing', '--clip_seconds=0.5'], device='cpu')\n"
         "c = [f'--workspace={ws}', '--model_type=Cnn_5layers_AvgPooling',\n"
         "     '--batch_size=4', '--feature_source=waveform']\n"
         "main.main(['train', *c, '--stop_iteration=2', '--eval_interval=2',\n"
         "           '--eval_max_iteration=1'], device='cpu')\n"
         "main.main(['inference', *c, '--data_type=testing'], device='cpu')\n"
         "main.main(['calculate_metrics', *c, '--data_type=testing'], device='cpu')\n"
+        "plot_results.main([f'--workspace={ws}', '--table'])\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
@@ -82,6 +91,7 @@ def test_the_cli_pipeline_loads_no_jax_h5py_sklearn_or_msgpack(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
     assert "SED: segF1=" in proc.stdout
+    assert "| Cnn_5layers_AvgPooling | 2 |" in proc.stdout
 
 
 def _imports(path: Path):
@@ -100,7 +110,7 @@ def test_port_sources_import_no_jax():
     assert {"main.py", "features.py", "checkpoints.py", "evaluate.py",
             "sed_fast.py", "scoring.py", "autoth.py", "audio_io.py",
             "data/h5.py", "data/hdf5.py", "data/generator.py", "data/synth.py",
-            "utils/statistics.py"} <= names
+            "utils/statistics.py", "native.py", "plot_results.py"} <= names
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
@@ -126,3 +136,35 @@ def test_kernel_source_ships_with_the_package():
     assert "pallas_logmel.py:logmel_pallas" in src
     assert "pallas_logmel.py:logmel_pallas_bank" in src
     assert "int sedx_logmel_bank_launch(" in src
+
+
+def _code(path: Path) -> list:
+    """The lines of a C++ source with its ``//`` comments and blank lines
+    dropped."""
+    lines = (line.split("//", 1)[0].rstrip() for line in path.read_text().splitlines())
+    return [line for line in lines if line]
+
+
+def test_native_source_ships_with_the_package():
+    from sound_event_detection_dcase2017_task4_torch import native
+
+    assert native.SOURCE == PORT / "csrc" / "sedx_native.cc"
+    assert native.SOURCE.is_file()
+    assert _code(native.SOURCE) == _code(REPO / "native" / "sedx_native.cc")
+    # native/Makefile's flags, so both libraries compute the same bits
+    make = (REPO / "native" / "Makefile").read_text()
+    assert f"CXXFLAGS ?= {' '.join(native.CXX_FLAGS)}\n" in make
+    assert "$< " + " ".join(native.LINK_FLAGS) in make
+    assert native.BUILD_DIR == PORT / "_build"
+    ignored = (REPO / ".gitignore").read_text().splitlines()
+    assert "sound_event_detection_dcase2017_task4_torch/_build/" in ignored
+
+
+def test_runme_torch_is_runme_with_the_port_package():
+    theirs = (REPO / "runme.sh").read_text().splitlines()
+    mine = (REPO / "runme_torch.sh").read_text().splitlines()
+    assert len(mine) == len(theirs)
+    diff = [(a, b) for a, b in zip(theirs, mine) if a != b]
+    assert diff == [('PKG="sound_event_detection_dcase2017_task4_tpu"',
+                     'PKG="sound_event_detection_dcase2017_task4_torch"')]
+    assert os.access(REPO / "runme_torch.sh", os.X_OK)
