@@ -97,11 +97,29 @@ random weights, in phases that each raise on failure:
    the host's share of one split's pack under the profiler; the testing
    split rewritten at 44.1 kHz packs through both resamplers within 1 LSB
    and 0.1 dB; then ``plot_results --table`` and ``runme.sh``'s plot on the
-   workspace of phases 8 and 9.
+   workspace of phases 8 and 9;
+11. data parallel (``parallel``) under a 1-rank NCCL group on ``cuda:0``
+   over a ``FileStore`` (the card's machine has one card; N-rank equality
+   is held on the CPU by ``tests/test_torch_parallel.py``), while phase 6's
+   bank is still staged: 10 f32 steps of the flagship at batch 128 (mixup
+   α = 1, dropout 0.2, TF32 off, cuDNN deterministic) through the
+   data-parallel step against the same 10 steps with no group, at the
+   train-step tolerances, every all-reduce counted (17 a step: each of the
+   8 BatchNorm layers forward and backward, and the gradients); 10 bf16
+   steps of the data-parallel step as the main path (bank kernel launches
+   counted from zero, the plain frontend never), then the bare step and the
+   two again alternated: each one's p50 by CUDA events, their ratio and
+   peak memory; a ragged eval (16 + 13 clips) through the data-parallel
+   ``forward_generator`` against the plain one (1e-5); ``main train`` under
+   the group in phase 8's workspace, host-fed (the waveform kernel), 10 bf16
+   steps with SpecAugment and mixup, evals and checkpoints at 0 and 10; the
+   written ``.pth`` loaded in a subprocess with no group equals the run's
+   state bit for bit and serves through ``Predictor.from_workspace``. A
+   failed NCCL init or collective fails the phase; nothing falls back.
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
 ``launches_cli`` of phase 8, ``launches_zoo`` of phase 9, ``launches_runme``
-of phase 10), then as its last line
+of phase 10, ``launches_parallel`` of phase 11), then as its last line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 when no CUDA device is available or any phase fails. It imports nothing of
 the JAX package.
@@ -109,6 +127,7 @@ the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -1911,6 +1930,290 @@ def phase_runme(torch, sedt, card, root, cli_ws):
     return sum(launches.values())
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data parallel under a process group
+# ---------------------------------------------------------------------------
+DP_STEPS = 10
+# the flagship has 8 BatchNorm layers: one [2C] all-reduce each forward and
+# backward, then one flat all-reduce of the gradients and the loss
+DP_COLLECTIVES_PER_STEP = 2 * 8 + 1
+
+
+@contextlib.contextmanager
+def _counted_all_reduces(dist):
+    """Count the ``dist.all_reduce`` calls of the ``with`` body (a list of
+    one count)."""
+    calls, all_reduce = [0], dist.all_reduce
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return all_reduce(*a, **k)
+
+    dist.all_reduce = counting
+    try:
+        yield calls
+    finally:
+        dist.all_reduce = all_reduce
+
+
+def _dp_model(torch, sedt, cfg, dtype, bank, scalar, scale, mesh):
+    """The flagship from seed 0 (dropout 0.2) and its train step over the
+    bank (mixup α = 1, the state's generators from seed 0), data parallel
+    over ``mesh`` when it is given."""
+    from sound_event_detection_dcase2017_task4_torch import train
+    from sound_event_detection_dcase2017_task4_torch.ops import stft
+
+    model = _train_model(sedt, torch, dtype, 0.2)
+    state = train.create_train_state(model, cfg, seed=0)    # device → cuda
+    step = train.make_train_step(
+        model, state, scalar=scalar, mixup_alpha=1.0, check_numerics=True,
+        bank=bank, wave_scale=scale, mesh=mesh,
+        bank_frontend=stft.make_logmel_bank_fn(cfg, precision="fast",
+                                               wave_scale=scale))
+    return model, step
+
+
+def _timed_steps(torch, step, batches, targets):
+    """Run ``step`` over ``batches``; returns the metrics, each step's time by
+    CUDA events and the peak memory of the run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(batches) + 1)]
+    metrics = []
+    marks[0].record()
+    for i, idx in enumerate(batches):
+        metrics.append(step(idx, targets[idx]))
+        marks[i + 1].record()
+    torch.cuda.synchronize()
+    return (metrics, [marks[i].elapsed_time(marks[i + 1]) for i in range(len(batches))],
+            torch.cuda.max_memory_allocated())
+
+
+def phase_parallel(torch, sedt, card, bank, targets, scale, ws):
+    """Phase 11 (see the module docstring). Returns the launches of both
+    kernels on its main paths."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from sound_event_detection_dcase2017_task4_torch import (checkpoints, main as cli,
+                                                             parallel, train)
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+
+    cfg = sedt.config.DEFAULT
+    scalar = (np.full(cfg.mel_bins, -30.0, np.float32),
+              np.full(cfg.mel_bins, 15.0, np.float32))
+    sampler = np.random.default_rng(11)
+    batches = [np.sort(sampler.choice(BANK_CLIPS, TRAIN_BATCH, replace=False))
+               for _ in range(DP_STEPS)]
+    store = tempfile.mkdtemp(prefix="sedx_dp_")
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store, "store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120), device_id=dev)
+    launches = {}
+    try:
+        mesh = parallel.make_mesh(dev)
+        if dist.get_backend(mesh.group) != "nccl" or mesh.size != 1:
+            raise AssertionError(f"the group: {dist.get_backend(mesh.group)}, "
+                                 f"{mesh.size} rank(s)")
+        print(f"[parallel] a 1-rank NCCL group on {dev} (FileStore), NCCL "
+              f"{torch.cuda.nccl.version()}")
+
+        # 1. f32: the same 10 steps from the same state, with the group and
+        # without; every collective of the data-parallel step counted
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                torch.backends.cudnn.deterministic)
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        try:
+            runs = {}
+            for tag, m in (("bare", None), ("parallel", mesh)):
+                model, step = _dp_model(torch, sedt, cfg, torch.float32, bank,
+                                        scalar, scale, m)
+                with _counted_all_reduces(dist) as calls:
+                    metrics, _, _ = _timed_steps(torch, step, batches, targets)
+                runs[tag] = ([float(x["loss"]) for x in metrics],
+                             [float(x["grad_norm"]) for x in metrics],
+                             {k: v.detach().cpu() for k, v in model.state_dict().items()
+                              if "running" in k}, calls[0])
+                del model, step
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic) = tf32
+        (l0, g0, s0, c0), (l1, g1, s1, c1) = runs["bare"], runs["parallel"]
+        d_loss = max(abs(a - b) / abs(b) for a, b in zip(l1, l0))
+        d_norm = max(abs(a - b) / abs(b) for a, b in zip(g1, g0))
+        d_stats = max(float(((s1[k] - s0[k]).abs() / (1e-5 + 1e-4 * s0[k].abs())).max())
+                      for k in s0)
+        print(f"[parallel] f32, TF32 off, {DP_STEPS} steps at batch {TRAIN_BATCH} over "
+              f"the bank (mixup α=1, dropout 0.2), the 1-rank NCCL step vs the step "
+              f"with no group: largest loss gap rel {d_loss:.3e} (limit 2e-5), "
+              f"grad-norm rel {d_norm:.3e} (limit 1e-4), BN running statistics after "
+              f"{DP_STEPS} steps at {d_stats:.3f} of rtol 1e-4 / atol 1e-5; "
+              f"all-reduces {c1} ({DP_COLLECTIVES_PER_STEP} a step) vs {c0}")
+        print(f"[parallel] f32 losses: {' '.join(f'{v:.6f}' for v in l1)}")
+        if not (d_loss <= 2e-5 and d_norm <= 1e-4 and d_stats <= 1.0):
+            raise AssertionError("the data-parallel step disagrees with the bare one")
+        if c1 != DP_STEPS * DP_COLLECTIVES_PER_STEP or c0:
+            raise AssertionError(f"all-reduces: {c1} with the group, {c0} without")
+        torch.cuda.empty_cache()
+
+        # 2. bf16: the main path (counters zeroed just before, read just
+        # after), then the bare step and the two again, alternated
+        models, steps = {}, {}
+        for tag, m in (("parallel", mesh), ("bare", None)):
+            models[tag], steps[tag] = _dp_model(torch, sedt, cfg, torch.bfloat16, bank,
+                                                scalar, scale, m)
+            steps[tag](batches[0], targets[batches[0]])   # cuDNN's first-call setup
+        with _PlainGuard(torch, cfg) as guard, _counted_all_reduces(dist) as calls:
+            logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+            dp_metrics, dp_ms, dp_peak = _timed_steps(torch, steps["parallel"], batches,
+                                                      targets)
+            launches["logmel_bank"], launches["logmel"] = (logmel_cuda.BANK_LAUNCHES,
+                                                           logmel_cuda.LAUNCHES)
+        if launches["logmel_bank"] != DP_STEPS or launches["logmel"]:
+            raise AssertionError(f"data-parallel steps: {launches['logmel_bank']} bank / "
+                                 f"{launches['logmel']} waveform launches")
+        if calls[0] != DP_STEPS * DP_COLLECTIVES_PER_STEP:
+            raise AssertionError(f"data-parallel bf16 steps: {calls[0]} all-reduces")
+        if any(guard.calls.values()):
+            raise AssertionError(f"plain frontend ran on the card: {guard.calls}")
+        losses = [float(m["loss"]) for m in dp_metrics]
+        if not np.isfinite(losses).all() or sum(int(m["nonfinite_count"])
+                                                for m in dp_metrics):
+            raise AssertionError(f"non-finite data-parallel training: {losses}")
+        times, peaks = {"parallel": dp_ms, "bare": []}, {"parallel": dp_peak, "bare": 0}
+        for tag in ("bare", "bare", "parallel"):      # parallel, bare, bare, parallel
+            _, t, peak = _timed_steps(torch, steps[tag], batches, targets)
+            times[tag] += t
+            peaks[tag] = max(peaks[tag], peak)
+        p_dp, p_bare = (float(np.median(times[k])) for k in ("parallel", "bare"))
+        dp_peak, bare_peak = peaks["parallel"], peaks["bare"]
+        print(f"[parallel] bf16 main path: {DP_STEPS} data-parallel steps of "
+              f"{MODEL} at batch {TRAIN_BATCH} over phase 6's bank, mixup α=1, "
+              f"dropout 0.2: bank kernel launches {launches['logmel_bank']}, waveform "
+              f"0, plain frontend calls 0, NCCL all-reduces {calls[0]}; loss "
+              f"{losses[0]:.4f} → {losses[-1]:.4f}")
+        print(f"[parallel] bf16 step p50 (CUDA events, {len(dp_ms)} steps each, "
+              f"alternated): data parallel {p_dp:.3f} ms, bare {p_bare:.3f} ms, ratio "
+              f"{p_dp / p_bare:.4f}; peak memory {dp_peak / 2**20:.1f} vs "
+              f"{bare_peak / 2**20:.1f} MiB ({(dp_peak - bare_peak) / 2**20:+.1f} MiB) "
+              f"[{card}]")
+        # where the two steps' device time differs, by PyTorch operator
+        ops = {tag: dict((key, ms) for ms, _, key in _device_kernels(
+            torch, lambda tag=tag: steps[tag](batches[1], targets[batches[1]]),
+            by_op=True)[1]) for tag in ("parallel", "bare")}
+        total = {tag: sum(v.values()) for tag, v in ops.items()}
+        gaps = sorted(set(ops["parallel"]) | set(ops["bare"]), key=lambda k: -abs(
+            ops["bare"].get(k, 0.0) - ops["parallel"].get(k, 0.0)))
+        print(f"[parallel-profile-op] one bf16 step's device time by operator: data "
+              f"parallel {total['parallel']:.4f} ms, bare {total['bare']:.4f} ms; "
+              f"the largest differences (bare − data parallel):")
+        for key in gaps[:8]:
+            b, p = ops["bare"].get(key, 0.0), ops["parallel"].get(key, 0.0)
+            print(f"[parallel-profile-op] {b - p:+9.4f} ms  bare {b:9.4f}  data "
+                  f"parallel {p:9.4f}  {key[:70]}")
+
+        # 3. ragged eval: the data-parallel forward_generator against the plain
+        evaluate = train.make_eval_step(
+            models["parallel"], scalar=scalar, bank=bank, wave_scale=scale,
+            bank_frontend=stft.make_logmel_bank_fn(cfg, precision="fast",
+                                                   wave_scale=scale))
+        outs = [train.forward_generator(
+            evaluate, ((b, targets[b]) for b in (batches[1][:16], batches[2][:13])),
+            prefetch=0, mesh=m) for m in (mesh, None)]
+        d_eval = max(float(np.abs(outs[0][k] - outs[1][k]).max())
+                     for k in ("clipwise_output", "framewise_output"))
+        print(f"[parallel] eval of 16 + 13 clips through the data-parallel "
+              f"forward_generator vs the plain one: max |Δ| {d_eval:.3e} (limit 1e-5)")
+        if not d_eval <= 1e-5 or outs[0]["clipwise_output"].shape != (29, cfg.classes_num):
+            raise AssertionError("the data-parallel eval disagrees")
+        del models, steps, evaluate
+        torch.cuda.empty_cache()
+
+        # 4. the CLI under the group, host-fed (the waveform kernel)
+        saved = {}
+        save_checkpoint = checkpoints.save_checkpoint
+
+        def recording_save(directory, state, iteration=None, opt_config=None):
+            saved[iteration] = checkpoints.state_dict(state)
+            return save_checkpoint(directory, state, iteration, opt_config)
+
+        argv = [f"--model_type={MODEL}", "--feature_source=waveform",
+                "--augmentation=mixup_specaugment", f"--batch_size={CLI_BATCH}"]
+        checkpoints.save_checkpoint = recording_save
+        try:
+            with _PlainGuard(torch, cfg) as guard:
+                logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+                t0 = time.perf_counter()
+                run = cli.main(["train", f"--workspace={ws}", *argv, "--dtype=bf16",
+                                "--device_cache=off", f"--stop_iteration={DP_STEPS}",
+                                f"--eval_interval={DP_STEPS}",
+                                f"--eval_max_iteration={CLI_EVAL_MAX}"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                b2, b1 = logmel_cuda.LAUNCHES, logmel_cuda.BANK_LAUNCHES
+        finally:
+            checkpoints.save_checkpoint = save_checkpoint
+        per_eval = min(CLI_EVAL_MAX, -(-CLI_TRAIN // CLI_BATCH)) + min(
+            CLI_EVAL_MAX, -(-CLI_TEST // CLI_BATCH))
+        if b2 != DP_STEPS + 2 * per_eval or b1 or any(guard.calls.values()):
+            raise AssertionError(f"CLI under the group: {b2} waveform / {b1} bank "
+                                 f"launches, plain {guard.calls}")
+        launches["logmel"] += b2
+        if run["iteration"] != DP_STEPS or not np.isfinite(run["loss"]):
+            raise AssertionError(f"CLI under the group: {run}")
+        run_config = "/".join(("loss_type=clip_bce", "augmentation=mixup_specaugment",
+                               f"batch_size={CLI_BATCH}"))
+        pth = os.path.join(ws, "checkpoints", "main", f"model_type={MODEL}",
+                           *run_config.split("/"), f"{DP_STEPS}_iterations.pth")
+        print(f"[parallel] main train under the group, host-fed int16 batches "
+              f"(--device_cache=off), bf16, SpecAugment + mixup, batch {CLI_BATCH}: "
+              f"{DP_STEPS} steps, evals at 0 and {DP_STEPS} in {wall:.3f} s; waveform "
+              f"kernel launches {b2} ({DP_STEPS} steps + 2×{per_eval} eval batches), "
+              f"bank 0, plain frontend calls 0; loss {run['loss']:.5f} [{card}]")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store)
+
+    # 5. the checkpoint in a process with no group: the run's state, served
+    out = os.path.join(store + "_check.pt")
+    code = (
+        "import sys, numpy as np, torch\n"
+        "from sound_event_detection_dcase2017_task4_torch import checkpoints, serving\n"
+        "from sound_event_detection_dcase2017_task4_torch.models import get_model\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "ws, model_type, run_config, pth, it, out = sys.argv[1:]\n"
+        "model = checkpoints.load_model(pth, get_model(model_type))\n"
+        "pred = serving.Predictor.from_workspace(ws, model_type, run_config,\n"
+        "                                        iteration=int(it), device='cpu')\n"
+        "wave = np.random.default_rng(3).standard_normal((2, 320000)).astype('float32')\n"
+        "res = pred(0.1 * wave)\n"
+        "torch.save({'model': model.state_dict(), 'clipwise': res['clipwise_output']}, out)\n")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code, ws, MODEL, run_config, pth,
+                           str(DP_STEPS), out],
+                          env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"loading the checkpoint with no group failed:\n"
+                             f"{proc.stderr[-2000:]}")
+    got = torch.load(out, weights_only=False)
+    os.unlink(out)
+    _tensors_equal(got["model"], saved[DP_STEPS]["model"], "checkpoint")
+    clip = np.asarray(got["clipwise"])
+    if clip.shape != (2, cfg.classes_num) or not np.isfinite(clip).all():
+        raise AssertionError(f"served from the checkpoint: {clip}")
+    print(f"[parallel] {os.path.basename(pth)} loaded in a process with no group "
+          f"(CPU): the model state equals the run's bit for bit, keys without a "
+          f"'module.' prefix; Predictor.from_workspace served 2 clips there")
+    print(f"[parallel] launches on the phase's main paths: bank kernel "
+          f"{launches['logmel_bank']}, waveform kernel {launches['logmel']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1933,14 +2236,17 @@ def main() -> int:
     try:
         cli, ws = phase_cli(torch, sedt, card, root)
         zoo = phase_zoo(torch, sedt, card, bank, targets, scale, ws)
-        del bank
         kernel["launches_runme"] = phase_runme(torch, sedt, card, root, ws)
+        dp = phase_parallel(torch, sedt, card, bank, targets, scale, ws)
+        del bank
     finally:
         shutil.rmtree(root)
     kernel["launches_cli"] = cli["logmel"]
     bank_kernel["launches_cli"] = cli["logmel_bank"]
     kernel["launches_zoo"] = zoo["logmel"]
     bank_kernel["launches_zoo"] = zoo["logmel_bank"]
+    kernel["launches_parallel"] = dp["logmel"]
+    bank_kernel["launches_parallel"] = dp["logmel_bank"]
     forbidden = [m for m in ("jax", "flax", "optax", "h5py", "sklearn",
                              "msgpack",
                              "sound_event_detection_dcase2017_task4_tpu")

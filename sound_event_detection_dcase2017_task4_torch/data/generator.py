@@ -53,6 +53,11 @@ class DataGenerator:
         # step decodes on device (``wave_scale`` in train.make_train_step):
         # half the host→device bytes. Opt-in (main._build sets it).
         self.raw_int16 = False
+        # data parallel: a ``parallel.Mesh`` makes host-fed train batches
+        # read only the rank's rows of each global batch (the targets and
+        # an index stay global); every rank runs the same stream from the
+        # same seed. None reads the whole batch.
+        self.mesh = None
         # resumable train-stream position (state_dict/load_state_dict); the
         # lock keeps snapshots consistent while a prefetch thread advances
         # the stream.
@@ -84,6 +89,8 @@ class DataGenerator:
         selected batch — the device-resident-corpus mode; the stream is the
         same in both modes.
         """
+        from ..parallel import shard_batch
+
         n = len(self.train)
         if self._train_order is None or len(self._train_order) != n:
             self._train_order = np.arange(n)
@@ -101,7 +108,8 @@ class DataGenerator:
             if yield_indices:
                 yield idx.astype(np.int32), self.train.target[idx]
             else:
-                yield self._select(self.train, idx)
+                x, _ = self._select(self.train, shard_batch(idx, self.mesh))
+                yield x, self.train.target[idx]
 
     def state_dict(self) -> dict:
         """Serializable train-stream position (RNG state + order + pointer)."""

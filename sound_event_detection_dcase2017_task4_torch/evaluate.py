@@ -15,7 +15,9 @@ one without negatives no AUC (NaN, as before).
 
 The forward pass over the split is the port's eval step
 (``train.make_eval_step``), which holds its model: there is no ``state``
-argument, where the JAX package passes its train state.
+argument, where the JAX package passes its train state. Where the JAX
+``Evaluator`` takes a batch ``sharding``, the port's takes a data-parallel
+``mesh`` (``train.forward_generator``).
 """
 
 from __future__ import annotations
@@ -113,16 +115,21 @@ class Evaluator:
     def __init__(self, eval_step, labels: Sequence[str] = _default_labels,
                  frames_per_second: int = 100,
                  sed_params: Optional[dict] = None,
-                 clip_duration: float = 10.0):
+                 clip_duration: float = 10.0,
+                 mesh=None):
         self.eval_step = eval_step
         self.labels = list(labels)
         self.frames_per_second = frames_per_second
         self.sed_params = sed_params or dict(sed.sed_params_dict)
         self.clip_duration = clip_duration
+        # a data-parallel parallel.Mesh (the JAX ``sharding``): each rank
+        # forwards its rows of every batch and every rank gets all outputs
+        self.mesh = mesh
 
     def forward(self, generate_func, eval_step=None) -> Dict[str, np.ndarray]:
         from .train import forward_generator
-        return forward_generator(eval_step or self.eval_step, generate_func)
+        return forward_generator(eval_step or self.eval_step, generate_func,
+                                 mesh=self.mesh)
 
     def evaluate(
         self,

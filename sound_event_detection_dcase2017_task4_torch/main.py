@@ -40,6 +40,23 @@ recomputes each conv or GLU block in the backward, and
 ``--augmentation=specaugment|mixup_specaugment`` masks the normalised
 log-mel in the step. Not ported: ``runtime.enable_compile_cache`` (JAX's
 compilation cache; eager PyTorch compiles nothing ahead of the step).
+
+``train`` runs data parallel where the JAX CLI trains on every visible
+device: under ``torchrun`` (one process per card)::
+
+    torchrun --nproc_per_node=8 -m sound_event_detection_dcase2017_task4_torch.main train ...
+
+each process joins the group ``torchrun`` describes (or uses one already
+initialised) on ``cuda:LOCAL_RANK``. The mesh is the largest number of
+processes that divides ``--batch_size``, as the JAX ``make_mesh_for_batch``
+takes (the others sit the run out). Every process runs the same data stream
+and takes its rows of each global batch; BatchNorm statistics, mixup,
+dropout and SpecAugment draws, the gradients and the loss are the global
+batch's (``parallel``, ``train``), so N processes train as one does. Only
+rank 0 writes the logs, statistics, checkpoints and data-stream positions;
+the others wait for each write. A checkpoint is the model's own state, so
+a run of any size resumes in any other. The other subcommands run in one
+process, as the JAX CLI's do, and refuse a group of more than one.
 """
 
 from __future__ import annotations
@@ -55,7 +72,8 @@ import time
 import numpy as np
 import torch
 
-from . import autoth, checkpoints, resolve_device, scoring, sed, train as train_lib
+from . import (autoth, checkpoints, parallel, resolve_device, scoring, sed,
+               train as train_lib)
 from .config import DEFAULT, classes_num, labels
 from .data import (DataGenerator, holdout_indices, load_scalar,
                    prefetch_to_device, read_split, scale, subset_reader)
@@ -137,8 +155,9 @@ def _frontends(cfg, no_pallas: bool, wave_scale):
                                      wave_scale=wave_scale))
 
 
-def _build(args, for_train: bool):
-    """Shared setup: readers, generator, model, train state and steps."""
+def _build(args, for_train: bool, mesh=None):
+    """Shared setup: readers, generator, model, train state and steps (the
+    train step data parallel over ``mesh``)."""
     dev = args.device
     ws = args.workspace
     feature_source = args.feature_source
@@ -174,6 +193,7 @@ def _build(args, for_train: bool):
     gen = DataGenerator(train_reader, test_reader,
                         batch_size=args.batch_size, scalar=scalar,
                         seed=args.seed, feature_source=feature_source)
+    gen.mesh = mesh
 
     dtype = torch.bfloat16 if getattr(args, "dtype", "f32") == "bf16" else torch.float32
     model = get_model(args.model_type, classes_num, dtype=dtype,
@@ -286,7 +306,7 @@ def _build(args, for_train: bool):
         use_spec_augment="specaugment" in args.augmentation,
         check_numerics=getattr(args, "check_numerics", False),
         bank=banks.get("train"), wave_scale=wave_scale,
-        bank_frontend=bank_fn if use_bank else None)
+        bank_frontend=bank_fn if use_bank else None, mesh=mesh)
         if for_train else None)
     eval_step = train_lib.make_eval_step(model, frontend=frontend,
                                          scalar=dev_scalar,
@@ -318,11 +338,28 @@ def do_train(args) -> dict:
     """Train; returns ``{"iteration", "loss", "evals"}``: the last
     iteration, the last step's loss and, for each eval point, its iteration
     with the train, eval and checkpoint wall times and the train clips/s
-    since the previous one."""
+    since the previous one.
+
+    In a process group (``torchrun``) every process of the mesh returns the
+    same; a process outside the mesh returns ``{"iteration": None, "loss":
+    None, "evals": []}`` before reading any data."""
     paths = _paths(args)
-    for k in ("checkpoints", "predictions", "submissions", "logs"):
-        create_folder(paths[k])
-    logger = create_logging(paths["logs"])
+    mesh = None
+    if parallel.is_initialized():
+        mesh = parallel.make_mesh_for_batch(args.batch_size, args.device)
+        if mesh is None:
+            logging.getLogger(__name__).warning(
+                "rank %d of %d sits this run out: --batch_size=%d splits "
+                "evenly over fewer processes", torch.distributed.get_rank(),
+                parallel.world_size(), args.batch_size)
+            return {"iteration": None, "loss": None, "evals": []}
+    rank0 = mesh is None or mesh.rank == 0       # the one that writes
+    if rank0:
+        for k in ("checkpoints", "predictions", "submissions", "logs"):
+            create_folder(paths[k])
+        logger = create_logging(paths["logs"])
+    else:
+        logger = logging.getLogger(__name__)
     logger.info("train: %s", vars(args))
 
     if args.resume_iteration > 0:
@@ -342,18 +379,21 @@ def do_train(args) -> dict:
                 "it, or train from scratch.")
         # a run resumes with no optimizer flags re-passed
         _adopt_ckpt_opt_config(args, ckpt)
-    ctx = _build(args, for_train=True)
+    ctx = _build(args, for_train=True, mesh=mesh)
     gen, step, state = ctx["gen"], ctx["step"], ctx["state"]
     use_bank, dev = ctx["use_bank"], args.device
-    logger.info("device: %s", dev)
+    logger.info("device: %s%s", dev, "" if mesh is None else
+                f" (rank {mesh.rank} of a data-parallel mesh of {mesh.size})")
 
-    statistics = StatisticsContainer(paths["statistics"])
+    statistics = StatisticsContainer(paths["statistics"]) if rank0 else None
     if args.resume_iteration > 0:
+        # every rank loads the same checkpoint (onto the CPU, then into its
+        # own device's tensors)
         checkpoints.load_checkpoint(ckpt, state, opt_config=ctx["opt_config"])
         logger.info("resumed from %s", ckpt)
         # keep the metric history before the resume point; the resumed run
         # evaluates again at the resume iteration when the cadence aligns
-        if os.path.isfile(paths["statistics"]):
+        if rank0 and os.path.isfile(paths["statistics"]):
             statistics.load(args.resume_iteration - 1)
             logger.info("statistics history restored: %d records",
                         len(statistics.statistics_list))
@@ -362,7 +402,8 @@ def do_train(args) -> dict:
             with open(dstate, "rb") as f:
                 gen.load_state_dict(pickle.load(f))
             logger.info("data-stream state restored from %s", dstate)
-    evaluator = Evaluator(ctx["eval_step"], labels, DEFAULT.frames_per_second)
+    evaluator = Evaluator(ctx["eval_step"], labels, DEFAULT.frames_per_second,
+                          mesh=mesh)
     # with --holdout_fold the validation set is a fold of the weakly
     # labelled training split: no strong labels, no SED metrics
     test_gt = (None if _holdout_fold(args) is not None
@@ -415,14 +456,17 @@ def do_train(args) -> dict:
                         **{k: res["sed"][k] for k in
                            ("overall", "class_wise", "class_wise_average")}}
                 logger.info(msg)
-                statistics.append(it, stats, split)
-            statistics.dump()
+                if rank0:
+                    statistics.append(it, stats, split)
+            if rank0:
+                statistics.dump()
             t_ckpt = time.time()
-            checkpoints.save_checkpoint(paths["checkpoints"], state, it,
-                                        opt_config=ctx["opt_config"])
-            _save_data_state(paths["checkpoints"], position, it)
+            if rank0:
+                checkpoints.save_checkpoint(paths["checkpoints"], state, it,
+                                            opt_config=ctx["opt_config"])
+                _save_data_state(paths["checkpoints"], position, it)
             ckpt_time = time.time() - t_ckpt
-            if getattr(args, "keep_checkpoints", 0) > 0:
+            if rank0 and getattr(args, "keep_checkpoints", 0) > 0:
                 test_recs = [r for r in statistics.statistics_list
                              if r.get("data_type") == "test" and "at" in r]
                 best = ((int(max(test_recs,
@@ -432,6 +476,7 @@ def do_train(args) -> dict:
                         paths["checkpoints"], args.keep_checkpoints,
                         protect=best):
                     logger.info("pruned %s", victim)
+            parallel.barrier(mesh)          # the others wait for the writes
             eval_time = time.time() - t0 - train_time
             steps = it - evals[-1]["iteration"] if evals else 0
             cps = (steps * args.batch_size / train_time
@@ -446,7 +491,7 @@ def do_train(args) -> dict:
 
         if it >= args.stop_iteration:
             break
-        if args.profile_dir and it == args.profile_start:
+        if rank0 and args.profile_dir and it == args.profile_start:
             profiler = _start_profiler(dev)
             logger.info("profiler trace started → %s", args.profile_dir)
         metrics = step(batch_x, batch_y)
@@ -466,7 +511,8 @@ def do_train(args) -> dict:
                 # --resume_iteration never pick up
                 dump = os.path.join(paths["checkpoints"],
                                     f"nonfinite_abort_{it}.pth.debug")
-                torch.save(checkpoints.state_dict(state), dump)
+                if rank0:
+                    torch.save(checkpoints.state_dict(state), dump)
                 raise FloatingPointError(
                     f"--check_numerics: {bad} non-finite loss/grad values "
                     f"at iteration {it}; aborting (poisoned state dumped "
@@ -476,9 +522,11 @@ def do_train(args) -> dict:
         it += 1
     batches.close()                      # stops the prefetch thread
 
-    checkpoints.save_checkpoint(paths["checkpoints"], state, it,
-                                opt_config=ctx["opt_config"])
-    _save_data_state(paths["checkpoints"], position, it)
+    if rank0:
+        checkpoints.save_checkpoint(paths["checkpoints"], state, it,
+                                    opt_config=ctx["opt_config"])
+        _save_data_state(paths["checkpoints"], position, it)
+    parallel.barrier(mesh)
     logger.info("done at iter %d", it)
     return {"iteration": it,
             "loss": None if metrics is None else float(metrics["loss"]),
@@ -781,7 +829,12 @@ def _add_common(sp):
 def main(argv=None, device=None):
     """Run one subcommand on ``device`` (``None`` → the CUDA card; raises
     when there is none; ``"cpu"`` runs on the CPU). Returns what the
-    subcommand returns (``train``: see :func:`do_train`)."""
+    subcommand returns (``train``: see :func:`do_train`).
+
+    ``train`` in a process group runs data parallel (``parallel.join``:
+    the group ``torchrun`` describes, joined here and left at the end, or
+    one the caller initialised, used as it is); every other subcommand
+    raises in a group of more than one process."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="mode", required=True)
@@ -835,8 +888,20 @@ def main(argv=None, device=None):
     ps.set_defaults(func=do_optimize_sed_thresholds)
 
     args = p.parse_args(argv)
-    args.device = resolve_device(device)
-    return args.func(args)
+    if args.func is not do_train:
+        if parallel.world_size() > 1:
+            raise RuntimeError(
+                f"{args.mode} runs in one process, as the JAX CLI's does; "
+                f"only train runs data parallel (this job has "
+                f"{parallel.world_size()} processes)")
+        args.device = resolve_device(device)
+        return args.func(args)
+    args.device, started = parallel.join(device)
+    try:
+        return do_train(args)
+    finally:
+        if started:
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

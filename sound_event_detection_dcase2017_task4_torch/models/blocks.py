@@ -14,6 +14,10 @@ the GLU block of the gated-CNN variant).
   ``torch.Generator``.
 * ``LayerNorm`` is flax's (epsilon 1e-6, float32 statistics by
   E[x²] − E[x]², result in the compute type), not ``torch.nn.LayerNorm``.
+* Under a data-parallel ``mesh`` (``parallel.Mesh``; a process holds its
+  rows of the global batch) train mode computes what one process would on
+  the global batch: ``BatchNorm`` takes global statistics and ``Dropout``
+  draws the global batch's mask and keeps the rank's rows.
 """
 
 from __future__ import annotations
@@ -23,6 +27,8 @@ import contextlib
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from .. import parallel
 
 __all__ = ["ConvBlock", "GLUBlock", "AttBlock", "BatchNorm", "LayerNorm",
            "Dropout", "dropout", "Dense", "LecunDense", "frozen_statistics",
@@ -61,7 +67,8 @@ class LecunDense(Dense):
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool = False,
-            generator: torch.Generator | None = None) -> torch.Tensor:
+            generator: torch.Generator | None = None,
+            mesh: parallel.Mesh | None = None) -> torch.Tensor:
     """The function of :class:`Dropout` with its rate as an argument."""
     if not train:
         return x
@@ -77,8 +84,10 @@ def dropout(x: torch.Tensor, rate: float, train: bool = False,
         return torch.zeros_like(x)
     # keep rounded to x's dtype, as a host number: no device traffic
     keep = float(torch.tensor(threshold / 65536.0, dtype=x.dtype))
-    mask = torch.rand(x.shape, generator=generator,
-                      device=x.device) < threshold / 65536.0
+    # the global batch's draw, this rank's rows of it
+    mask = parallel.shard_batch(torch.rand(
+        (parallel.mesh_size(mesh) * x.shape[0],) + x.shape[1:],
+        generator=generator, device=x.device), mesh) < threshold / 65536.0
     return torch.where(mask, x / keep, x.new_zeros(()))
 
 
@@ -93,7 +102,9 @@ class Dropout(nn.Module):
     The mask is ``torch.rand(..., generator=generator) < threshold/65536``:
     exact in float32 on the CPU, whose uniform draws are multiples of 2⁻²⁴.
     The two frameworks draw different bits; train mode without a generator
-    raises.
+    raises. Under a ``mesh`` the mask is drawn for the global batch (every
+    rank draws the same bits from the same generator state) and the rank
+    keeps its rows: N times the draws, the bits of one process.
     """
 
     def __init__(self, rate: float):
@@ -101,8 +112,9 @@ class Dropout(nn.Module):
         self.rate = rate
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
-        return dropout(x, self.rate, train, generator)
+                generator: torch.Generator | None = None,
+                mesh: parallel.Mesh | None = None) -> torch.Tensor:
+        return dropout(x, self.rate, train, generator, mesh)
 
 
 class BatchNorm(nn.Module):
@@ -122,6 +134,15 @@ class BatchNorm(nn.Module):
     (:func:`frozen_statistics`, the backward's second forward of a
     rematerialised block) the running statistics are left alone, so that
     they move once a step, as flax's do under ``nn.remat``.
+
+    The statistics come from the float32 per-channel sums ``Σx`` and
+    ``Σx²``, packed as one ``[2C]`` vector and divided by the count. Under
+    a ``mesh`` that vector is summed over the ranks in one collective (its
+    gradient is the same sum) and the count is the global one: the global
+    batch's statistics, as XLA takes them over a sharded batch.
+    ``SyncBatchNorm`` would keep the unbiased running variance. A recompute
+    under remat issues the collective again, in the same order on every
+    rank.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
@@ -136,12 +157,16 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self.recomputing = False
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mesh: parallel.Mesh | None = None) -> torch.Tensor:
         if train:
             dims = (0,) + tuple(range(2, x.ndim))
             xf = x.to(torch.float32)
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            sums = parallel.all_reduce_sum(
+                torch.cat([xf.sum(dims), (xf * xf).sum(dims)]), mesh)
+            count = parallel.mesh_size(mesh) * (x.numel() // x.shape[1])
+            mean, ex2 = (sums / count).chunk(2)
+            var = torch.clamp(ex2 - mean * mean, min=0.0)
             if not self.recomputing:
                 with torch.no_grad():
                     m = self.momentum
@@ -218,11 +243,12 @@ class ConvBlock(nn.Module):
         for conv in self.convs:
             nn.init.xavier_uniform_(conv.weight, generator=generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mesh: parallel.Mesh | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         for conv, bn in zip(self.convs, self.bns):
             x = F.conv2d(x.to(dt), conv.weight.to(dt), padding=1)
-            x = F.relu(bn(x, train))
+            x = F.relu(bn(x, train, mesh))
         if self.pool != (1, 1):
             x = F.avg_pool2d(x, self.pool)
         return x
@@ -258,13 +284,14 @@ class GLUBlock(nn.Module):
         for conv in (*self.lin, *self.gate):
             nn.init.xavier_uniform_(conv.weight, generator=generator)
 
-    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                mesh: parallel.Mesh | None = None) -> torch.Tensor:
         dt = self.compute_dtype
         for lin, gate, bn_lin, bn_gate in zip(self.lin, self.gate,
                                               self.bn_lin, self.bn_gate):
             x = x.to(dt)
-            a = bn_lin(F.conv2d(x, lin.weight.to(dt), padding=1), train)
-            g = bn_gate(F.conv2d(x, gate.weight.to(dt), padding=1), train)
+            a = bn_lin(F.conv2d(x, lin.weight.to(dt), padding=1), train, mesh)
+            g = bn_gate(F.conv2d(x, gate.weight.to(dt), padding=1), train, mesh)
             x = a * torch.sigmoid(g)
         if self.pool != (1, 1):
             x = F.avg_pool2d(x, self.pool)

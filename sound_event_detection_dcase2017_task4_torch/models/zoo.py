@@ -38,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from .. import parallel
 from ..config import classes_num as _default_classes
 from .blocks import (AttBlock, ConvBlock, Dense, Dropout, GLUBlock, LayerNorm,
                      LecunDense, dropout, frozen_statistics, interpolate,
@@ -166,10 +167,14 @@ class TransformerEncoderLayer(nn.Module):
         self.dense1 = Dense(features * mlp_ratio, features, dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                mesh: parallel.Mesh | None = None) -> torch.Tensor:
+        # the attention's [1, 1, T, T] mask has no batch dim: every rank
+        # draws it whole
         x = x + self.attn(self.ln0(x), self.dropout, train, generator)
         h = F.gelu(self.dense0(self.ln1(x)), approximate="tanh")
-        return x + dropout(self.dense1(h), self.dropout, train, generator)
+        return x + dropout(self.dense1(h), self.dropout, train, generator,
+                           mesh)
 
 
 def positional_encoding(t: int, d: int, device=None) -> torch.Tensor:
@@ -259,20 +264,24 @@ class SedCnn(nn.Module):
                 m.reset_parameters(generator)
 
     def forward(self, logmel: torch.Tensor, train: bool = False,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                mesh: parallel.Mesh | None = None) -> dict:
         """``logmel [B, T, mel]`` → the output dict. ``train=True`` takes
         BatchNorm batch statistics and runs dropout after every block (and
-        in the Transformer) with masks from ``generator`` (required then)."""
+        in the Transformer) with masks from ``generator`` (required then).
+        Under a data-parallel ``mesh`` ``logmel`` is this rank's rows of the
+        global batch, and train mode takes the global batch's statistics
+        and masks (``blocks.BatchNorm``, ``blocks.dropout``)."""
         frames_num = logmel.shape[1]
         x = logmel[:, None].to(self.dtype)                    # [B, 1, T, F]
         for block, drop in zip(self.blocks, self.dropouts):
             if self.remat and train:
-                x = checkpoint(block, x, train, use_reentrant=False,
+                x = checkpoint(block, x, train, mesh, use_reentrant=False,
                                context_fn=functools.partial(
                                    _recompute_contexts, block))
             else:
-                x = block(x, train)
-            x = drop(x, train, generator)
+                x = block(x, train, mesh)
+            x = drop(x, train, generator, mesh)
         x = x.mean(dim=3).transpose(1, 2)                     # [B, T', C]
         if self.gru is not None:
             x = self.gru(x, train)
@@ -281,7 +290,7 @@ class SedCnn(nn.Module):
             x = x + positional_encoding(x.shape[1], x.shape[2],
                                         x.device).to(x.dtype)
             for layer in self.transformer:
-                x = layer(x, train, generator)
+                x = layer(x, train, generator, mesh)
         embedding = x
 
         if self.head == "att":

@@ -20,6 +20,16 @@ labels); no global generator is touched.
 
 :func:`forward_generator` runs an eval step over a finite batch generator
 and gathers its outputs as numpy arrays (the inference and evaluation path).
+
+Both take a data-parallel ``mesh`` (``parallel.Mesh``), the counterpart of
+the JAX package's sharded batches: each process computes its rows of the
+global batch, and an N-process step computes the 1-process step. Its
+BatchNorm statistics and its dropout and SpecAugment masks are the global
+batch's (``models.blocks``), λ is drawn for the global batch, the mixup
+partner is the global batch reversed, and the gradients and the reported
+loss are averaged over the mesh in one collective after the backward.
+Without a mesh (``None``, a mesh of one) the same code runs no collective
+and draws what the global batch of one process needs.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import parallel, resolve_device
 from .config import Config, DEFAULT
 from .losses import get_loss_func
 
@@ -121,14 +131,21 @@ def create_train_state(model, cfg: Config = DEFAULT,
         mixup_rng=np.random.default_rng(seed + 1))
 
 
-def mixup(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor):
+def mixup(x: torch.Tensor, y: torch.Tensor, lam: torch.Tensor,
+          mesh: Optional[parallel.Mesh] = None):
     """Mixup with per-example ``lam [B]`` (reference: ``utils/utilities.py:
     Mixup``): each example is paired with the batch reversed, and the
-    targets take the same λ."""
-    lam_x = lam.view((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+    targets take the same λ.
+
+    Under a ``mesh``, ``x`` is this rank's rows and ``y``, ``lam`` are the
+    global batch's; the partner is the global batch reversed, whose rows
+    for rank ``r`` are rank ``n − 1 − r``'s reversed (exchanged with
+    ``parallel.mirror``). Returns this rank's rows of both."""
     lam_y = lam.view((-1,) + (1,) * (y.ndim - 1)).to(y.dtype)
-    return (lam_x * x + (1 - lam_x) * x.flip(0),
-            lam_y * y + (1 - lam_y) * y.flip(0))
+    lam_x = parallel.shard_batch(lam, mesh).view(
+        (-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+    return (lam_x * x + (1 - lam_x) * parallel.mirror(x, mesh).flip(0),
+            parallel.shard_batch(lam_y * y + (1 - lam_y) * y.flip(0), mesh))
 
 
 TIME_MASKS, TIME_WIDTH = 2, 64         # SpecAugment masks per example
@@ -174,11 +191,17 @@ def apply_spec_augment(x: torch.Tensor, time_starts: torch.Tensor,
     return torch.where(mask, fill, x)
 
 
-def spec_augment(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def spec_augment(x: torch.Tensor, generator: torch.Generator,
+                 mesh: Optional[parallel.Mesh] = None) -> torch.Tensor:
     """SpecAugment (Park et al. 2019) on ``x [B, T, F]``: 2 time masks of
     up to 64 frames and 2 freq masks of up to 8 mel bins, drawn from
-    ``generator`` on ``x``'s device, nothing read back to the host."""
-    return apply_spec_augment(x, *spec_augment_draws(*x.shape, generator))
+    ``generator`` on ``x``'s device, nothing read back to the host. Under a
+    ``mesh`` ``x`` is this rank's rows: the positions are drawn for the
+    global batch and the rank takes its columns of them."""
+    b, t, f = x.shape
+    draws = spec_augment_draws(parallel.mesh_size(mesh) * b, t, f, generator)
+    return apply_spec_augment(
+        x, *(parallel.shard_batch(d, mesh, dim=1) for d in draws))
 
 
 def _to_device(a, device: torch.device, dtype=None) -> torch.Tensor:
@@ -228,7 +251,8 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
                     check_numerics: bool = False,
                     bank: Optional[torch.Tensor] = None,
                     wave_scale: Optional[float] = None,
-                    bank_frontend: Optional[Callable] = None):
+                    bank_frontend: Optional[Callable] = None,
+                    mesh: Optional[parallel.Mesh] = None):
     """Build the train step ``(batch_x, batch_y) → metrics``.
 
     ``frontend`` (``ops.stft.make_logmel_fn``) makes ``batch_x`` a waveform
@@ -247,6 +271,15 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
     the bank kernel from the host index; without it they are gathered with
     ``index_select`` and go through ``frontend``. Targets and λ are copied
     from the host without blocking; the step reads nothing back.
+
+    With a data-parallel ``mesh`` every process of the mesh calls the step
+    on the same global batch: ``batch_y`` and a bank's ``batch_idx`` are
+    the global batch's, a host-fed ``batch_x`` is this rank's rows of it
+    (``parallel.shard_batch``). Building the step gives every rank rank
+    0's parameters and buffers; after the backward the gradients and the
+    loss are averaged over the mesh, so ``loss``, ``grad_norm``, the clip
+    and ``nonfinite_count`` are the global batch's and every rank's Adam
+    takes the same update.
     """
     if model is not state.model:
         raise ValueError("make_train_step: model is not the state's model")
@@ -255,27 +288,34 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
     _check_bank_device(bank, device)
     norm = _scalar_on(scalar, device)
     params = list(model.parameters())
+    parallel.replicate(model, mesh)
 
     def step_fn(batch_x, batch_y, melled):
         x = (_frontend_and_norm(batch_x, None, norm) if melled else
              _frontend_and_norm(batch_x, frontend, norm, wave_scale))
         y = _to_device(batch_y, device, torch.float32)
         if use_spec_augment:
-            x = spec_augment(x, state.dropout_generator)
+            x = spec_augment(x, state.dropout_generator, mesh)
         if mixup_alpha > 0.0:
-            lam = state.mixup_rng.beta(mixup_alpha, mixup_alpha, x.shape[0])
-            x, y = mixup(x, y, _to_device(lam, device, torch.float32))
-        out = model(x, train=True, generator=state.dropout_generator)
+            lam = state.mixup_rng.beta(mixup_alpha, mixup_alpha, y.shape[0])
+            x, y = mixup(x, y, _to_device(lam, device, torch.float32), mesh)
+        else:
+            y = parallel.shard_batch(y, mesh)
+        out = model(x, train=True, generator=state.dropout_generator,
+                    mesh=mesh)
         loss = loss_fn(out, y)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grads = [p.grad for p in params if p.grad is not None]
-        metrics = {"loss": loss.detach(),
+        loss = loss.detach()
+        # the global batch's mean: one collective
+        parallel.average_([*grads, loss], mesh)
+        metrics = {"loss": loss,
                    "grad_norm": torch.nn.utils.get_total_norm(grads)}
         if check_numerics:
             metrics["nonfinite_count"] = (
                 sum((~torch.isfinite(g)).sum() for g in grads)
-                + (~torch.isfinite(loss.detach())).sum())
+                + (~torch.isfinite(loss)).sum())
         if state.grad_clip:
             # optax.clip_by_global_norm: g·c / max(‖g‖, c)
             c = state.grad_clip
@@ -291,11 +331,15 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
     if bank is None:
         return lambda batch_x, batch_y: step_fn(
             _to_device(batch_x, device), batch_y, melled=False)
+
+    def rows(batch_idx):            # this rank's rows of the global index
+        return parallel.shard_batch(batch_idx, mesh)
+
     if bank_frontend is not None:
         return lambda batch_idx, batch_y: step_fn(
-            bank_frontend(bank, batch_idx), batch_y, melled=True)
+            bank_frontend(bank, rows(batch_idx)), batch_y, melled=True)
     return lambda batch_idx, batch_y: step_fn(
-        bank.index_select(0, _to_device(batch_idx, device, torch.long)),
+        bank.index_select(0, _to_device(rows(batch_idx), device, torch.long)),
         batch_y, melled=False)
 
 
@@ -331,7 +375,8 @@ def make_eval_step(model, frontend: Optional[Callable] = None,
 
 
 def forward_generator(eval_step, generate_func, return_target: bool = True,
-                      prefetch: int = 2) -> dict:
+                      prefetch: int = 2,
+                      mesh: Optional[parallel.Mesh] = None) -> dict:
     """Accumulate an eval step's outputs over a finite generator of
     ``(batch_x, batch_y)`` as numpy arrays: ``clipwise_output``,
     ``framewise_output`` and (optionally) ``target`` (reference:
@@ -342,6 +387,12 @@ def forward_generator(eval_step, generate_func, return_target: bool = True,
     ``prefetch`` batches are assembled ahead in a background thread (pinned
     for a CUDA step), so that host reads overlap the device; ``prefetch=0``
     runs serially.
+
+    With a data-parallel ``mesh`` (the JAX ``sharding`` argument) every
+    rank of the mesh runs the same generator: each batch is padded with
+    zero rows (zero indices on the bank path) to a multiple of the mesh
+    size, each rank forwards its rows, and the outputs are gathered and the
+    pad rows dropped, so every rank returns the whole result.
     """
     from .data.generator import _pinned, prefetch_to_device
 
@@ -352,15 +403,19 @@ def forward_generator(eval_step, generate_func, return_target: bool = True,
 
     def stage(batch):
         batch_x, batch_y = batch
-        return (_pinned(batch_x) if pin else batch_x), batch_y
+        n = len(batch_x)
+        batch_x = parallel.shard_batch(
+            parallel.pad_rows(batch_x, parallel.mesh_size(mesh)), mesh)
+        return n, (_pinned(batch_x) if pin else batch_x), batch_y
 
     staged = (prefetch_to_device(generate_func, size=prefetch, stage=stage)
               if prefetch else map(stage, generate_func))
-    for batch_x, batch_y in staged:
+    for n, batch_x, batch_y in staged:
         out = eval_step(batch_x)
-        acc["clipwise_output"].append(out["clipwise_output"].float().cpu().numpy())
-        acc["framewise_output"].append(
-            out["framewise_output"].float().cpu().numpy())
+        clip, frame = (parallel.gather_rows(out[k], mesh)[:n]
+                       for k in ("clipwise_output", "framewise_output"))
+        acc["clipwise_output"].append(clip.float().cpu().numpy())
+        acc["framewise_output"].append(frame.float().cpu().numpy())
         if return_target:
             acc["target"].append(np.asarray(batch_y))
     return {k: np.concatenate(v, axis=0) for k, v in acc.items()}

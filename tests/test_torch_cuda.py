@@ -11,7 +11,8 @@ bank launch is bit-equal to the waveform launch on the decoded rows. The
 CLI trains on the card through the bank kernel (device cache on) and the
 waveform kernel (off); the GLU and Transformer steps match the CPU's;
 ``calculate_feature_for_all_audio_files`` packs WAVs through the waveform
-kernel as the CPU does. This file imports nothing of the JAX package.
+kernel as the CPU does; the data-parallel step under a 1-rank NCCL group
+equals the step with no group. This file imports nothing of the JAX package.
 """
 
 import numpy as np
@@ -253,3 +254,63 @@ def test_wav_packing_on_the_card_matches_the_cpu(cuda, tmp_path):
     np.testing.assert_array_equal(gpu.target, cpu.target)
     np.testing.assert_array_equal(gpu.waveform.raw, cpu.waveform.raw)
     np.testing.assert_allclose(gpu.feature, cpu.feature, atol=0.1, rtol=0)
+
+
+def test_one_rank_nccl_step_equals_the_ungrouped_step(cuda, tmp_path):
+    """The data-parallel step under a 1-rank NCCL group (over a
+    ``FileStore``) on the card: 3 f32 steps with dropout 0.2, mixup and
+    SpecAugment equal the same steps with no group at the train-step
+    tolerances, and a step issues one all-reduce per BatchNorm layer each
+    way and one for the gradients."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from sound_event_detection_dcase2017_task4_torch import parallel
+
+    cfg = config.Config(clip_samples=16000)
+    _, staged = _bank(cfg)
+    idx = np.array([1, 3, 0, 3])
+    y = (np.random.RandomState(3).rand(4, 17) < 0.3).astype(np.float32)
+    scale = 2.0 ** -15
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1, device_id=dev,
+                            timeout=datetime.timedelta(seconds=60))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    calls, all_reduce = [0], dist.all_reduce
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return all_reduce(*a, **k)
+
+    runs = []
+    try:
+        for mesh in (None, parallel.make_mesh(dev)):
+            model = SedCnn(channels=(8, 16), seq="gru", gru_hidden=16, dropout=0.2,
+                           generator=torch.Generator().manual_seed(0))
+            state = train.create_train_state(model, cfg, device=dev)
+            step = train.make_train_step(
+                model, state, bank=torch.from_numpy(staged).to(dev), wave_scale=scale,
+                mixup_alpha=1.0, use_spec_augment=True, mesh=mesh,
+                bank_frontend=stft.make_logmel_bank_fn(cfg, wave_scale=scale))
+            calls[0] = 0
+            dist.all_reduce = counting
+            try:
+                ms = [step(idx, y) for _ in range(3)]
+            finally:
+                dist.all_reduce = all_reduce
+            runs.append(([float(m["loss"]) for m in ms],
+                         [float(m["grad_norm"]) for m in ms],
+                         {k: v.cpu() for k, v in model.state_dict().items()
+                          if "running" in k}, calls[0]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    (l0, g0, s0, c0), (l1, g1, s1, c1) = runs
+    assert (c0, c1) == (0, 3 * (2 * 4 + 1))        # 4 BatchNorm layers
+    np.testing.assert_allclose(l1, l0, rtol=2e-5)
+    np.testing.assert_allclose(g1, g0, rtol=1e-4)
+    for k in s0:
+        torch.testing.assert_close(s1[k], s0[k], rtol=1e-4, atol=1e-5)
