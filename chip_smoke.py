@@ -116,10 +116,28 @@ random weights, in phases that each raise on failure:
    written ``.pth`` loaded in a subprocess with no group equals the run's
    state bit for bit and serves through ``Predictor.from_workspace``. A
    failed NCCL init or collective fails the phase; nothing falls back.
+12. the tools and examples (``tools/``, ``examples/`` of the port's
+   package), each through its ``main`` on the card at a reduced size:
+   ``sed_search_bench`` at 488 × 1001 × 17 along both paths (the same
+   optimum, the round trips counted); ``mfu`` (its FLOPs counted on the
+   CPU, the bf16 bench step over an int16 bank timed by CUDA events);
+   ``coldstart_probe``'s four fresh processes; ``scale_soak`` on a packed
+   256/64/64-clip workspace for 20 lazy host-fed steps; ``hard_benchmark
+   matrix`` on the flagship, one seed and the ``no_normalization`` control
+   at 20 steps over a 64/488/488-clip hard corpus; ``parity_check`` in dry
+   mode; ``minimal_train`` (30 steps) and ``streaming_live`` on the hard
+   matrix's workspace. The tools that run the CLI run it in child
+   processes, each of which prints its kernel counters and its calls of
+   the plain frontends on its last line; every child's and every
+   in-process run's launches are held to what it did (steps, eval batches,
+   ⌈clips/32⌉ batches of inference, or non-zero where the count depends on
+   the data), and the plain frontend runs nowhere but in
+   ``coldstart_probe``'s plain cells.
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
 ``launches_cli`` of phase 8, ``launches_zoo`` of phase 9, ``launches_runme``
-of phase 10, ``launches_parallel`` of phase 11), then as its last line
+of phase 10, ``launches_parallel`` of phase 11, ``launches_tools`` of phase
+12), then as its last line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 when no CUDA device is available or any phase fails. It imports nothing of
 the JAX package.
@@ -2214,6 +2232,201 @@ def phase_parallel(torch, sedt, card, bank, targets, scale, ws):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the tools and examples
+# ---------------------------------------------------------------------------
+
+TOOLS_SOAK = (256, 64, 64)          # scale_soak's workspace: train/test/eval
+TOOLS_SOAK_STEPS, TOOLS_SOAK_EVAL, TOOLS_BATCH = 20, 10, 32
+TOOLS_HARD_TRAIN, TOOLS_HARD_STEPS = 64, 20
+TOOLS_HARD_TEST = 488               # the tool packs the full test split
+TOOLS_CONTROL = "no_normalization"
+MINIMAL_STEPS = 30                  # minimal_train's own step count
+
+
+def _child_launches(report, what, logmel=0, bank=0):
+    """Hold a tool child's counters (``tools.child_report``) to what the
+    child did: no plain frontend call, and the waveform (``logmel``) and
+    bank (``bank``) launches equal to the given count, or non-zero for
+    ``True``, or zero for ``0``."""
+    if any(report["plain"].values()):
+        raise AssertionError(f"{what}: the plain frontend ran: {report}")
+    for key, want in (("logmel", logmel), ("logmel_bank", bank)):
+        got = report[key]
+        if want is True and got < 1 or want is not True and got != want:
+            raise AssertionError(f"{what}: {key} launches {got}, expected "
+                                 f"{'> 0' if want is True else want}")
+    return report
+
+
+def phase_tools(torch, sedt, card, root):
+    """Phase 12 (see the module docstring) in workspaces under ``root``.
+    Returns the launches of both kernels, in the phase's own process and
+    in the tools' children."""
+    from sound_event_detection_dcase2017_task4_torch import features
+    from sound_event_detection_dcase2017_task4_torch.examples import (
+        minimal_train, streaming_live)
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
+    from sound_event_detection_dcase2017_task4_torch.tools import (
+        coldstart_probe, hard_benchmark, mfu, parity_check, scale_soak,
+        sed_search_bench)
+
+    cfg = sedt.config.DEFAULT
+    torch.cuda.empty_cache()              # the children share the card
+    launches = {"logmel": 0, "logmel_bank": 0}
+    walls = {}
+
+    def counted(tag, fn, logmel=0, bank=0, plain=0):
+        """Zero the counters, run ``fn`` in this process, hold the counters
+        to ``logmel``/``bank`` (as in :func:`_child_launches`) and the
+        plain frontend's calls in this process to ``plain`` (the CPU FLOP
+        count of ``mfu`` and ``parity_check``'s comparison make them)."""
+        with _PlainGuard(torch, cfg) as guard:
+            logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[tag] = time.perf_counter() - t0
+            got = {"logmel": logmel_cuda.LAUNCHES,
+                   "logmel_bank": logmel_cuda.BANK_LAUNCHES}
+        if guard.calls != {"logmel": plain, "logmel_bank": 0}:
+            raise AssertionError(f"{tag}: plain frontend calls {guard.calls}, "
+                                 f"expected {plain} of logmel")
+        _child_launches({**got, "plain": {}}, tag, logmel, bank)
+        for k in launches:
+            launches[k] += got[k]
+        return out
+
+    def add(reports):
+        for r in reports:
+            for k in launches:
+                launches[k] += r[k]
+
+    # sed_search_bench at the testing split's size, both paths
+    rec = counted("sed_search_bench", lambda: sed_search_bench.main([]))
+    if rec["sequential_dispatches"] <= rec["grid_ascent_dispatches"]:
+        raise AssertionError(f"sed_search_bench: {rec}")
+    print(f"[tools] sed_search_bench {rec['size']}: grid ascent "
+          f"{rec['grid_ascent_s']:.3f} s over {rec['grid_ascent_dispatches']} "
+          f"dispatches, sequential {rec['sequential_s']:.3f} s over "
+          f"{rec['sequential_dispatches']} ({rec['speedup']:.2f}×), the same "
+          f"optimum {rec['best_score']:.6f}; staging {rec['compile_s']:.3f} s "
+          f"[{card}]")
+
+    # mfu: the count on the CPU, the bench step timed on the card
+    # the CPU count calls the plain frontend twice (the step, and the
+    # frontend alone to take out)
+    rec = counted("mfu", lambda: mfu.main([]),
+                  bank=mfu.TIMED_STEPS + mfu.WARMUP_STEPS, plain=2)
+    if not 0 < rec["mfu"] < 1:
+        raise AssertionError(f"mfu: {rec}")
+    print(f"[tools] mfu: {rec['flops_per_step'] / 1e12:.4f} TFLOP a step "
+          f"(model {rec['model_flops'] / 1e12:.4f}, kernel frontend "
+          f"{rec['frontend_flops'] / 1e9:.4f} GFLOP), step {rec['step_ms']:.3f} "
+          f"ms, {rec['sustained_tflops']:.2f} TFLOP/s, MFU "
+          f"{100 * rec['mfu']:.2f}% of {rec['peak_tflops']:.0f} TFLOP/s "
+          f"[{card}]")
+
+    # coldstart_probe: four fresh processes
+    recs = counted("coldstart_probe", lambda: coldstart_probe.main([]))
+    for r in recs:
+        kernel = r["cell"].endswith("kernel")
+        if kernel:
+            _child_launches(r["launches"], r["cell"], logmel=2)
+            add([r["launches"]])
+        elif (r["launches"]["plain"]["logmel"] != 2
+              or r["launches"]["logmel"] or r["launches"]["logmel_bank"]):
+            raise AssertionError(f"{r['cell']}: {r['launches']}")
+        build = ("-" if r["kernel_build_s"] is None
+                 else f"{r['kernel_build_s']:.3f}")
+        print(f"[tools] coldstart {r['cell']}: import {r['import_s']:.3f} s, "
+              f"device {r['device_s']:.3f} s, kernel build {build} s, build "
+              f"{r['build_s']:.3f} s, first step {r['first_step_s']:.3f} s, "
+              f"second {r['second_step_s']:.3f} s, process "
+              f"{r['process_wall_s']:.3f} s [{card}]")
+
+    # scale_soak on a packed 256/64/64 workspace
+    soak_ws = os.path.join(root, "soak")
+    n_train, n_test, n_eval = TOOLS_SOAK
+    counted("pack soak", lambda: features.main([
+        "pack_synthetic", f"--workspace={soak_ws}", f"--num_train={n_train}",
+        f"--num_test={n_test}", f"--num_eval={n_eval}", "--metadata_only"]),
+        logmel=sum(-(-n // PACK_BATCH) for n in TOOLS_SOAK))
+    rec = counted("scale_soak", lambda: scale_soak.main([
+        f"--workspace={soak_ws}", f"--iterations={TOOLS_SOAK_STEPS}",
+        f"--batch_size={TOOLS_BATCH}", f"--eval_interval={TOOLS_SOAK_EVAL}"]))
+    evals = TOOLS_SOAK_STEPS // TOOLS_SOAK_EVAL + 1
+    # each eval: 2 batches (--eval_max_iteration=2) of each split
+    _child_launches(rec["launches"]["train"], "scale_soak train",
+                    logmel=TOOLS_SOAK_STEPS + evals * 4)
+    _child_launches(rec["launches"]["inference"], "scale_soak inference",
+                    logmel=-(-n_eval // TOOLS_BATCH))
+    _child_launches(rec["launches"]["calculate_metrics"],
+                    "scale_soak calculate_metrics", logmel=0)
+    add(rec["launches"].values())
+    if rec["eval_clips"] != n_eval or rec["train_clips_per_sec"] is None:
+        raise AssertionError(f"scale_soak: {rec}")
+    print(f"[tools] scale_soak {n_train}/{n_test}/{n_eval} clips, "
+          f"{TOOLS_SOAK_STEPS} lazy host-fed steps at batch {TOOLS_BATCH}: "
+          f"{rec['train_clips_per_sec']:.1f} clips/s, peak RSS train "
+          f"{rec['train_peak_rss_gb']:.3f} GiB, inference "
+          f"{rec['inference_peak_rss_gb']:.3f} GiB [{card}]")
+
+    # hard_benchmark: one family, one seed, one control, 20 steps
+    hard_ws = os.path.join(root, "hard")
+    children = counted("hard_benchmark", lambda: hard_benchmark.main([
+        "matrix", f"--workspace={hard_ws}", f"--models={MODEL}",
+        "--seeds=1234", f"--controls={TOOLS_CONTROL}",
+        f"--num_train={TOOLS_HARD_TRAIN}",
+        f"--iterations={TOOLS_HARD_STEPS}",
+        f"--batch_size={TOOLS_BATCH}"]))
+    want = {"features pack_synthetic": dict(logmel=True),
+            "main train": dict(bank=True),
+            "tools.hard_benchmark train-control": dict(bank=True),
+            "main inference": dict(logmel=-(-TOOLS_HARD_TEST // TOOLS_BATCH)),
+            "main calculate_metrics": {}}
+    for c in children:
+        _child_launches(c, f"hard_benchmark {c['run']}", **want[c["run"]])
+    if sorted(c["run"] for c in children) != sorted(
+            ["features pack_synthetic", "main train",
+             "tools.hard_benchmark train-control"]
+            + 2 * ["main inference", "main calculate_metrics"]):
+        raise AssertionError(f"hard_benchmark children: {children}")
+    add(children)
+    print(f"[tools] hard_benchmark matrix ({MODEL}, seed 1234, control "
+          f"{TOOLS_CONTROL}, {TOOLS_HARD_STEPS} steps): "
+          + ", ".join(f"{c['run']} {c['logmel']}+{c['logmel_bank']}"
+                      for c in children)
+          + " (waveform+bank launches)")
+
+    # parity_check in dry mode (no reference tree, no corpus)
+    rc = counted("parity_check", lambda: parity_check.main([
+        f"--reference={os.path.join(root, 'no_reference')}",
+        f"--survey_patch={os.path.join(root, 'survey_patch.md')}"]),
+        logmel=1, plain=1)
+    if rc != 0:
+        raise AssertionError(f"parity_check exited {rc}")
+
+    # both examples
+    events = counted("minimal_train", lambda: minimal_train.main(),
+                     logmel=MINIMAL_STEPS + 1)
+    if len(events) != 4:
+        raise AssertionError(f"minimal_train: {events}")
+    lines = counted("streaming_live", lambda: streaming_live.main([
+        f"--workspace={os.path.join(hard_ws, 'seed_1234')}",
+        f"--model_type={MODEL}",
+        f"--run_config=loss_type=clip_bce/augmentation=mixup/"
+        f"batch_size={TOOLS_BATCH}"]), logmel=True)
+    print(f"[tools] streaming_live: {len(lines)} events from 30 s of live "
+          f"audio in 250 ms chunks")
+    print("[tools] wall times: " + ", ".join(f"{k} {v:.1f} s"
+                                             for k, v in walls.items()))
+    print(f"[tools] launches in the phase (this process and the tools' "
+          f"children): waveform kernel {launches['logmel']}, bank kernel "
+          f"{launches['logmel_bank']}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2239,6 +2452,7 @@ def main() -> int:
         kernel["launches_runme"] = phase_runme(torch, sedt, card, root, ws)
         dp = phase_parallel(torch, sedt, card, bank, targets, scale, ws)
         del bank
+        tools = phase_tools(torch, sedt, card, root)
     finally:
         shutil.rmtree(root)
     kernel["launches_cli"] = cli["logmel"]
@@ -2247,6 +2461,8 @@ def main() -> int:
     bank_kernel["launches_zoo"] = zoo["logmel_bank"]
     kernel["launches_parallel"] = dp["logmel"]
     bank_kernel["launches_parallel"] = dp["logmel_bank"]
+    kernel["launches_tools"] = tools["logmel"]
+    bank_kernel["launches_tools"] = tools["logmel_bank"]
     forbidden = [m for m in ("jax", "flax", "optax", "h5py", "sklearn",
                              "msgpack",
                              "sound_event_detection_dcase2017_task4_tpu")

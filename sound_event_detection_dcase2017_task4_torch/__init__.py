@@ -4,8 +4,9 @@ The JAX package stays the reference; this package mirrors its module names
 (``config``, ``ops/stft``, ``models``, ``losses``, ``train``, ``sed``,
 ``sed_fast``, ``serving``, ``checkpoints``, ``evaluate``, ``scoring``,
 ``autoth``, ``data``, ``features``, ``native``, ``main``,
-``plot_results``, ``parallel``) with PyTorch inside, and
-replaces each Pallas TPU kernel with a kernel written by hand for Hopper
+``plot_results``, ``parallel``, ``audio_io``, and the ``tools`` and
+``examples`` of the repository's root) with PyTorch inside, and replaces
+each Pallas TPU kernel with a kernel written by hand for Hopper
 (``ops/logmel_cuda.py`` + ``ops/csrc/logmel.cu``). It imports ``torch``,
 never ``jax``, and nothing of the JAX package; it needs neither ``h5py``
 (``data/h5.py`` reads and writes the HDF5 subset of the packed corpus) nor
@@ -60,7 +61,7 @@ def __getattr__(name):
     module_level = {"sed", "models", "serving", "weights", "ops", "train",
                     "losses", "data", "checkpoints", "evaluate", "scoring",
                     "autoth", "sed_fast", "features", "main", "utils",
-                    "native", "plot_results", "parallel"}
+                    "native", "plot_results", "parallel", "audio_io"}
     if name in lazy:
         mod, attr = lazy[name]
         return getattr(importlib.import_module(f".{mod}", __name__), attr)

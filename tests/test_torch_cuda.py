@@ -12,7 +12,9 @@ CLI trains on the card through the bank kernel (device cache on) and the
 waveform kernel (off); the GLU and Transformer steps match the CPU's;
 ``calculate_feature_for_all_audio_files`` packs WAVs through the waveform
 kernel as the CPU does; the data-parallel step under a 1-rank NCCL group
-equals the step with no group. This file imports nothing of the JAX package.
+equals the step with no group; ``examples.minimal_train`` with no device
+trains through the waveform kernel. This file imports nothing of the JAX
+package.
 """
 
 import numpy as np
@@ -314,3 +316,23 @@ def test_one_rank_nccl_step_equals_the_ungrouped_step(cuda, tmp_path):
     np.testing.assert_allclose(g1, g0, rtol=1e-4)
     for k in s0:
         torch.testing.assert_close(s1[k], s0[k], rtol=1e-4, atol=1e-5)
+
+
+def test_minimal_train_example_runs_through_the_waveform_kernel(cuda, monkeypatch):
+    """``examples.minimal_train`` with no device runs on the card: 3 steps
+    and one eval batch, one waveform kernel launch each, and the plain
+    frontends never run."""
+    from sound_event_detection_dcase2017_task4_torch.examples import minimal_train
+
+    plain = []
+    for name in ("logmel", "logmel_bank"):
+        fn = getattr(stft, name)
+        monkeypatch.setattr(stft, name,
+                            lambda *a, _fn=fn, _n=name, **k: (plain.append(_n),
+                                                              _fn(*a, **k))[1])
+    b1, b2 = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+    events = minimal_train.main(steps=3)
+    torch.cuda.synchronize()
+    assert (logmel_cuda.BANK_LAUNCHES - b1, logmel_cuda.LAUNCHES - b2) == (0, 4)
+    assert plain == []
+    assert len(events) == 4 and all(isinstance(e, list) for e in events)

@@ -6,9 +6,12 @@ step over an int16 bank (after checking that ``create_train_state`` with no
 device raises without a card), and run the CLI on the CPU (``features
 pack_synthetic`` with WAVs, ``calculate_feature_for_all_audio_files``
 through the native decoder, ``main train`` → ``inference`` →
-``calculate_metrics``, ``plot_results --table``), then check
-``sys.modules``; a source scan checks every module of the port and
-``chip_smoke.py`` for such imports. The port ships its own copy of the
+``calculate_metrics``, ``plot_results --table``) and run one of the port's
+tools on the CPU (``tools.sed_search_bench``, with a CLI child of
+``tools.run_cli``), then check ``sys.modules``; a source scan checks every
+module of the port (its ``tools`` and ``examples`` too) and
+``chip_smoke.py`` for such imports, and for ``bench.py``. The lazy
+``sedt.audio_io`` resolves in a fresh process, as ``sedx.audio_io`` does. The port ships its own copy of the
 native decoder's source, and ``runme_torch.sh`` is ``runme.sh`` with the
 port's package.
 """
@@ -94,6 +97,44 @@ def test_the_cli_pipeline_loads_no_jax_h5py_sklearn_or_msgpack(tmp_path):
     assert "| Cnn_5layers_AvgPooling | 2 |" in proc.stdout
 
 
+def test_a_tool_loads_no_jax_h5py_sklearn_or_msgpack():
+    code = (
+        "import sys\n"
+        "from sound_event_detection_dcase2017_task4_torch import tools\n"
+        "from sound_event_detection_dcase2017_task4_torch.tools import sed_search_bench\n"
+        "rec = sed_search_bench.main(['--clips', '4', '--frames', '101'],\n"
+        "                            device='cpu')\n"
+        "assert rec['sequential_dispatches'] > rec['grid_ascent_dispatches']\n"
+        "rc, out = tools.run_cli('tools.sed_search_bench',\n"
+        "                        ['--clips', '2', '--frames', '51',\n"
+        "                         '--skip_sequential'], 'cpu', echo=False)\n"
+        "assert rc == 0 and tools.child_report(out)['logmel'] == 0, out\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}\n"
+        "       or m == 'bench']\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
+def test_audio_io_resolves_lazily_in_a_fresh_process():
+    code = (
+        "import sys\n"
+        "import sound_event_detection_dcase2017_task4_torch as sedt\n"
+        "import sound_event_detection_dcase2017_task4_tpu as sedx\n"
+        "assert sedt.audio_io.__name__ == sedt.__name__ + '.audio_io'\n"
+        "assert sedx.audio_io.__name__ == sedx.__name__ + '.audio_io'\n"
+        "assert callable(sedt.audio_io.load_wav)\n"
+        "print('OK')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "OK"
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -110,10 +151,15 @@ def test_port_sources_import_no_jax():
     assert {"main.py", "features.py", "checkpoints.py", "evaluate.py",
             "sed_fast.py", "scoring.py", "autoth.py", "audio_io.py",
             "data/h5.py", "data/hdf5.py", "data/generator.py", "data/synth.py",
-            "utils/statistics.py", "native.py", "plot_results.py"} <= names
+            "utils/statistics.py", "native.py", "plot_results.py",
+            "tools/__init__.py", "tools/mfu.py", "tools/coldstart_probe.py",
+            "tools/sed_search_bench.py", "tools/scale_soak.py",
+            "tools/hard_benchmark.py", "tools/parity_check.py",
+            "examples/minimal_train.py", "examples/streaming_live.py"} <= names
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+            assert name != "bench", f"{path}: imports the JAX side's bench.py"
         text = path.read_text()
         assert "importlib.import_module(\"jax" not in text, path
 
