@@ -133,11 +133,28 @@ random weights, in phases that each raise on failure:
    ⌈clips/32⌉ batches of inference, or non-zero where the count depends on
    the data), and the plain frontend runs nowhere but in
    ``coldstart_probe``'s plain cells.
+13. the root entry points (``graft_entry``, the counterpart of
+   ``__graft_entry__.py``): ``entry()`` on the card (the full-width flagship
+   on 4 × 2 s clips, seed 0) through the waveform kernel, its launches
+   counted from zero (1; the plain frontend never runs); the same forward
+   held to ``entry(device="cpu")`` on the card's parameters at 1e-4 (TF32
+   off) on the example zeros and a seeded waveform; the waveform kernel's
+   own output held to the plain frontend at the shapes this phase gives
+   it (entry's seeded [4, 64000], the dry run's [2, 16000] and [1, 16000]),
+   0.1 dB absolute and rtol 2e-3 in the linear domain: the model's outputs
+   alone would not show a frontend that is off by a fraction of a dB; its
+   p50 over 20 calls by CUDA events; then
+   ``dryrun_multichip(torch.cuda.device_count())``,
+   one spawned rank a card under NCCL (one on this machine: N > 1 is held
+   on the CPU by ``tests/test_torch_graft_entry.py``), each rank holding
+   the data-parallel step to the step with no mesh at the JAX file's
+   tolerances and reporting its waveform kernel launches (3: two steps and
+   the ragged eval).
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
 ``launches_cli`` of phase 8, ``launches_zoo`` of phase 9, ``launches_runme``
 of phase 10, ``launches_parallel`` of phase 11, ``launches_tools`` of phase
-12), then as its last line
+12, ``launches_entry`` of phase 13), then as its last line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 when no CUDA device is available or any phase fails. It imports nothing of
 the JAX package.
@@ -2427,6 +2444,126 @@ def phase_tools(torch, sedt, card, root):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the root entry points
+# ---------------------------------------------------------------------------
+ENTRY_REPS = 20
+
+
+def phase_entry(torch, card):
+    """Phase 13 (see the module docstring). Returns the waveform kernel's
+    launches on its main path: ``entry()``'s forward and the dry run's
+    ranks."""
+    from sound_event_detection_dcase2017_task4_torch import graft_entry
+    from sound_event_detection_dcase2017_task4_torch.config import Config
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    cfg = Config(clip_samples=64000)
+    # ---- the main path: counters zeroed just before, read just after ----
+    with _PlainGuard(torch, cfg) as guard:
+        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        forward, args = graft_entry.entry()
+        clip, frame = forward(*args)
+        torch.cuda.synchronize()
+        launches = {"entry": logmel_cuda.LAUNCHES, "bank": logmel_cuda.BANK_LAUNCHES}
+    # ----------------------------------------------------------------------
+    if launches != {"entry": 1, "bank": 0} or any(guard.calls.values()):
+        raise AssertionError(f"entry(): launches {launches}, plain {guard.calls}")
+    if args[2].device.type != "cuda" or clip.device.type != "cuda":
+        raise AssertionError(f"entry() ran on {args[2].device} / {clip.device}")
+    n_params = sum(p.numel() for p in args[0].values())
+    if (tuple(clip.shape) != (4, cfg.classes_num)
+            or tuple(frame.shape) != (4, cfg.frames_num, cfg.classes_num)
+            or not (torch.isfinite(clip).all() and torch.isfinite(frame).all())):
+        raise AssertionError(f"entry(): {tuple(clip.shape)}, {tuple(frame.shape)}")
+    print(f"[entry] graft_entry.entry() on {clip.device}: {graft_entry.FLAGSHIP} "
+          f"({n_params} params), forward(*args) → clipwise {tuple(clip.shape)}, "
+          f"framewise {tuple(frame.shape)}; waveform kernel launches "
+          f"{launches['entry']}, bank 0, plain frontend calls 0")
+
+    # the card against entry(device="cpu") with the card's parameters, TF32
+    # off: the example zeros and a seeded waveform
+    cpu_forward, _ = graft_entry.entry(device="cpu")
+    cpu_args = [{k: v.cpu() for k, v in args[i].items()} for i in (0, 1)]
+    seeded = torch.from_numpy((np.random.default_rng(13).standard_normal(
+        (4, cfg.clip_samples)) * 0.1).astype(np.float32))
+    gaps = {}
+    for tag, wave in (("zeros", args[2]), ("seeded", seeded.cuda())):
+        got = forward(args[0], args[1], wave)
+        want = cpu_forward(*cpu_args, wave.cpu())
+        gaps[tag] = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    print(f"[entry] f32, TF32 off, the card vs entry(device='cpu') on the same "
+          f"parameters: max |Δ| zeros {gaps['zeros']:.3e}, seeded "
+          f"{gaps['seeded']:.3e} (limit 1e-4)")
+    if not max(gaps.values()) <= 1e-4:
+        raise AssertionError(f"entry(): the card disagrees with the CPU: {gaps}")
+
+    # the kernel's own output against the plain frontend at the shapes this
+    # phase launches it at: the seeded clips above, and the dry run's wave
+    # (its legs' global batch of 2 and its ragged eval's row). The model's
+    # outputs above barely move under a small frontend error (its random
+    # eval-mode network saturates), so the kernel is held here directly
+    dry = Config(clip_samples=16000)
+    dry_wave = torch.from_numpy(np.random.RandomState(0).randn(
+        2, dry.clip_samples).astype(np.float32) * 0.1)
+    for tag, c, wave in (("entry's seeded", cfg, seeded),
+                         ("the dry run's", dry, dry_wave),
+                         ("the dry run's eval", dry, dry_wave[:1])):
+        got = logmel_cuda.logmel_cuda(wave.cuda(), c).cpu()
+        want = stft.logmel(wave, c)
+        err, ok = _db_bound_ok(got, want)
+        print(f"[entry] waveform kernel vs plain frontend on {tag} "
+              f"{list(wave.shape)} → {list(got.shape)}: max |Δ| {err:.3e} dB "
+              f"(limit 0.1, linear within rtol 2e-3)")
+        if got.shape != want.shape or not ok:
+            raise AssertionError(f"waveform kernel disagrees with the plain "
+                                 f"frontend on {tag} {list(wave.shape)}: {err} dB")
+
+    # the forward's p50 by CUDA events
+    for _ in range(3):
+        forward(*args)
+    times = []
+    for _ in range(ENTRY_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward(*args)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    p50 = float(np.median(times))
+    print(f"[entry] forward(*args) p50 {p50:.4f} ms, min {min(times):.4f} ms "
+          f"over {ENTRY_REPS} calls (CUDA events, f32, 4 × 2 s clips) [{card}]")
+    # the device's share of the forward: its kernels' time under the profiler
+    _, rows = _device_kernels(torch, lambda: forward(*args))
+    busy = sum(ms for ms, _, _ in rows)
+    print(f"[entry-profile] one forward's device time {busy:.4f} ms in "
+          f"{sum(n for _, n, _ in rows)} kernels and copies, {100 * busy / p50:.1f}% "
+          f"of the p50; heaviest: " + "; ".join(
+              f"{name[:48]} {ms:.4f} ms ×{n}" for ms, n, name in rows[:4]))
+
+    # the dry run over every card: one rank a card under NCCL
+    n = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(n, timeout=300)
+    wall = time.perf_counter() - t0
+    if res["backend"] != "nccl" or res["launches"] != [
+            {"logmel": 3, "logmel_bank": 0}] * n:
+        raise AssertionError(f"dryrun_multichip({n}): {res}")
+    launches["entry"] += sum(r["logmel"] for r in res["launches"])
+    print(f"[entry] dryrun_multichip({n}) under NCCL in {wall:.1f} s: loss "
+          f"{res['loss']:.6f} vs {res['loss_1']:.6f} with no mesh, grad-norm "
+          f"{res['grad_norm']:.6f} vs {res['grad_norm_1']:.6f}, eval "
+          f"{res['eval_shape']}; waveform kernel launches a rank 3 (two steps, "
+          f"the eval); {n} rank(s) on this machine, N > 1 is held on the CPU "
+          f"only (tests/test_torch_graft_entry.py, gloo)")
+    print(f"[entry] waveform kernel launches on the phase's main path: "
+          f"{launches['entry']}")
+    return launches["entry"]
+
+
 def main() -> int:
     import torch
 
@@ -2455,6 +2592,7 @@ def main() -> int:
         tools = phase_tools(torch, sedt, card, root)
     finally:
         shutil.rmtree(root)
+    kernel["launches_entry"] = phase_entry(torch, card)
     kernel["launches_cli"] = cli["logmel"]
     bank_kernel["launches_cli"] = cli["logmel_bank"]
     kernel["launches_zoo"] = zoo["logmel"]

@@ -229,6 +229,13 @@ class SplitReader:
     def __len__(self) -> int:
         return len(self.audio_names)
 
+    def close(self) -> None:
+        """Drop the feature and waveform arrays (and with them a lazy
+        reader's memmaps, unmapped when no view of them is left); the names
+        and targets stay. A second call does nothing."""
+        self.feature = None
+        self.waveform = None
+
 
 def read_split(path: str, load_waveform: bool = False,
                in_memory: bool = True) -> SplitReader:

@@ -28,7 +28,7 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["build", "load_wav", "load_wav_batch", "resample"]
+__all__ = ["available", "build", "load_wav", "load_wav_batch", "resample"]
 
 SOURCE = Path(__file__).parent / "csrc" / "sedx_native.cc"
 BUILD_DIR = Path(__file__).parent / "_build"
@@ -82,6 +82,17 @@ def build() -> ctypes.CDLL:
         lib.sedx_resample_poly.restype = i64
         _lib = lib
         return lib
+
+
+def available() -> bool:
+    """Whether the library builds (or was built) and loads here. Nothing in
+    the port falls back on the answer: ``features`` chooses the Python
+    loader only for ``--no_native``."""
+    try:
+        build()
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return False
+    return True
 
 
 def _fptr(a: np.ndarray):

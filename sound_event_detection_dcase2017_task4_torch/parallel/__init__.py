@@ -8,11 +8,11 @@ outputs.
 """
 
 from .mesh import (Mesh, all_reduce_sum, average_, barrier, gather_rows,
-                   is_initialized, join, make_mesh, make_mesh_for_batch,
+                   is_initialized, join, launch, make_mesh, make_mesh_for_batch,
                    mesh_size, mirror, pad_rows, replicate, shard_batch,
                    world_size)
 
 __all__ = ["Mesh", "is_initialized", "world_size", "join", "make_mesh",
            "make_mesh_for_batch", "mesh_size", "shard_batch",
            "all_reduce_sum", "average_", "mirror", "gather_rows",
-           "replicate", "barrier", "pad_rows"]
+           "replicate", "barrier", "pad_rows", "launch"]

@@ -28,13 +28,25 @@ process and in N.
 Every function takes ``mesh=None`` for a process in no group, a mesh of one:
 it then returns its input (or nothing) and runs no collective, so one code
 path serves both.
+
+:func:`launch` starts a job without ``torchrun``: ``n`` fresh interpreters,
+described to :func:`join` as ``torchrun`` describes its ranks, meeting over a
+``FileStore`` in a temporary directory (no port to collide with), with a
+deadline after which every rank is killed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import importlib
+import json
 import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
 from typing import Optional
 
 import numpy as np
@@ -46,7 +58,7 @@ from .. import resolve_device
 __all__ = ["Mesh", "is_initialized", "world_size", "join", "make_mesh",
            "make_mesh_for_batch", "mesh_size", "shard_batch",
            "all_reduce_sum", "average_", "mirror", "gather_rows",
-           "replicate", "barrier", "pad_rows"]
+           "replicate", "barrier", "pad_rows", "launch"]
 
 # a collective that waits longer than this raises instead of hanging
 TIMEOUT = datetime.timedelta(seconds=300)
@@ -78,30 +90,33 @@ def world_size() -> int:
     return int(os.environ.get("WORLD_SIZE", "1"))
 
 
-def join(device=None) -> tuple[torch.device, bool]:
+def join(device=None, init_method=None) -> tuple[torch.device, bool]:
     """This process's device in the job, and whether this call started the
     job's process group (the caller then destroys it).
 
     An initialised ``torch.distributed`` group is used as it is, on the
     card its caller made current (``torch.cuda.current_device()``) or on the
     CPU. Otherwise, when ``torchrun`` describes more than one process
-    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), the process takes
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``), or ``init_method`` names
+    where the ranks meet (then also for a job of one), the process takes
     ``cuda:LOCAL_RANK``, makes it current before anything touches the card
-    and joins over ``env://`` with NCCL (gloo when ``device`` is the CPU).
-    With neither there is no group: ``resolve_device(device)``.
+    and joins over ``init_method`` (``env://`` by default) with NCCL (gloo
+    when ``device`` is the CPU). With neither there is no group:
+    ``resolve_device(device)``.
     """
     dev = resolve_device(device)
     if is_initialized():
         if dev.type == "cuda":
             dev = torch.device("cuda", torch.cuda.current_device())
         return dev, False
-    if world_size() == 1:
+    if world_size() == 1 and init_method is None:
         return dev, False
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(dev)
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
-                            init_method="env://", timeout=TIMEOUT)
+                            init_method=init_method or "env://",
+                            timeout=TIMEOUT)
     return dev, True
 
 
@@ -236,3 +251,84 @@ def pad_rows(x: np.ndarray, multiple: int) -> np.ndarray:
     if not pad:
         return x
     return np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
+
+
+_RANK_CODE = (
+    "import json, sys\n"
+    "sys.path[:] = json.loads(sys.argv[1])\n"
+    "from sound_event_detection_dcase2017_task4_torch.parallel.mesh import _rank\n"
+    "_rank(*sys.argv[2:])\n")
+
+
+def _rank(target: str, workdir: str, device: str) -> None:
+    """A rank of :func:`launch`: join the job, run ``target`` on the
+    launch's argument, save what it returns."""
+    if torch.device(device).type == "cpu":
+        # one thread: n ranks do not oversubscribe the cores, and the CPU
+        # conv backward's reduction order follows the rows alone, as in a
+        # one-thread process with no group
+        torch.set_num_threads(1)
+    n, rank = world_size(), int(os.environ["RANK"])
+    dev, _ = join(device, init_method=(
+        f"file://{os.path.join(workdir, 'store')}?rank={rank}&world_size={n}"))
+    try:
+        module, fn = target.split(":")
+        arg = torch.load(os.path.join(workdir, "arg.pt"), weights_only=False)
+        out = getattr(importlib.import_module(module), fn)(arg, dev)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def launch(target: str, n: int, arg=None, device="cpu",
+           timeout: float = 600.0) -> list:
+    """Run ``target`` (``"module:function"``) as ranks ``0 … n − 1`` of one
+    job and return what each returned, in rank order.
+
+    Each rank is a fresh interpreter with the caller's ``sys.path`` (unlike
+    ``multiprocessing``'s spawn it does not import the caller's
+    ``__main__``) and ``WORLD_SIZE``, ``RANK`` and ``LOCAL_RANK`` set as
+    ``torchrun`` sets them; it joins the group over a ``FileStore`` in a
+    temporary directory (:func:`join`: rank ``r`` on ``cuda:r`` under NCCL,
+    or on the CPU under gloo with one thread), calls ``function(arg,
+    device)`` and sends its return value back by file. When a rank fails,
+    every rank is killed and the call raises with the failed rank's output;
+    so it does when they have not all ended within ``timeout`` seconds."""
+    workdir = tempfile.mkdtemp(prefix="sedx_ranks_")
+    procs, logs = [], []
+    try:
+        torch.save(arg, os.path.join(workdir, "arg.pt"))
+        for r in range(n):
+            logs.append(open(os.path.join(workdir, f"rank{r}.log"), "w"))
+            env = dict(os.environ, WORLD_SIZE=str(n), RANK=str(r),
+                       LOCAL_RANK=str(r))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _RANK_CODE, json.dumps(sys.path),
+                 target, workdir, str(device)],
+                env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        while True:
+            codes = [p.poll() for p in procs]
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed:
+                r = failed[0]
+                with open(os.path.join(workdir, f"rank{r}.log")) as f:
+                    log = f.read()[-4000:]
+                raise RuntimeError(f"{target} on {n} ranks: rank {r} exited "
+                                   f"with {codes[r]}:\n{log}")
+            if all(c == 0 for c in codes):
+                break
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"{target} on {n} ranks did not end within "
+                                   f"{timeout} s")
+            time.sleep(0.05)
+        return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                           weights_only=False) for r in range(n)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+        for f in logs:
+            f.close()
+        shutil.rmtree(workdir, ignore_errors=True)

@@ -226,3 +226,27 @@ def test_native_builds_once_per_source_and_flags(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
         native.build()
     assert list((tmp_path / "b").iterdir()) == []
+
+
+def test_native_available_says_whether_the_library_builds(tmp_path, monkeypatch):
+    """``native.available()`` is true where the library builds and loads
+    (as the JAX package's is), false where it does not; and a features run
+    without ``--no_native`` still raises then instead of falling back on
+    the Python loader."""
+    assert native.available() is True
+    assert native.available() == jnative.available()
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "b")
+    monkeypatch.setattr(native, "SOURCE", tmp_path / "broken.cc")
+    (tmp_path / "broken.cc").write_text("this is not C++\n")
+    assert native.available() is False
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    assert native.available() is False
+    meta = tmp_path / "ds" / "metadata"
+    meta.mkdir(parents=True)
+    (meta / "testing_set.csv").write_text("a.wav\tCar\n")
+    with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
+        features.main(["calculate_feature_for_all_audio_files",
+                       f"--dataset_dir={tmp_path / 'ds'}",
+                       f"--workspace={tmp_path / 'ws'}", "--data_type=testing",
+                       "--clip_seconds=0.5"], device="cpu")

@@ -69,6 +69,40 @@ def test_reads_what_the_jax_packer_wrote(tmp_path):
         j.close()
 
 
+@pytest.mark.parametrize("in_memory", [True, False], ids=["memory", "lazy"])
+def test_split_reader_close(tmp_path, in_memory):
+    """``SplitReader.close()`` drops the arrays (a lazy reader's memmaps
+    are unmapped once no view is left) and may be called twice, as the
+    JAX reader's; names and targets stay. A subset's reader closes alike."""
+    import gc
+    import weakref
+
+    cfg = jconfig.Config(clip_samples=4000)
+    rng = np.random.default_rng(1)
+    waves = [0.3 * rng.standard_normal(4000).astype(np.float32)
+             for _ in range(3)]
+    targets = (rng.random((3, 17)) < 0.3).astype(np.float32)
+    path = str(tmp_path / "training.h5")
+    jhdf5.pack_waveforms_to_hdf5(iter(waves), ["a.wav", "b.wav", "c.wav"],
+                                 targets, path, cfg, batch_size=2)
+    r = hdf5.read_split(path, load_waveform=True, in_memory=in_memory)
+    j = jhdf5.read_split(path, load_waveform=True, in_memory=in_memory)
+    feature = weakref.ref(r.feature)
+    sub = hdf5.subset_reader(r, np.array([0, 2]))
+    np.testing.assert_array_equal(sub.feature[np.arange(2)],
+                                  j.feature[np.array([0, 2])])
+    for reader in (sub, r, j):
+        reader.close()
+        reader.close()
+    assert r.feature is None and r.waveform is None
+    assert sub.feature is None and sub.waveform is None
+    gc.collect()
+    assert feature() is None
+    assert r.audio_names == j.audio_names == ["a.wav", "b.wav", "c.wav"]
+    assert len(r) == 3 and len(sub) == 2
+    np.testing.assert_array_equal(r.target, j.target)
+
+
 _DTYPES = [np.int16, np.int32, np.int64, np.uint8, np.float32, np.float64,
            "S7", "S120", ">f4", ">i2"]
 

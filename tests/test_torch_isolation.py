@@ -8,7 +8,9 @@ pack_synthetic`` with WAVs, ``calculate_feature_for_all_audio_files``
 through the native decoder, ``main train`` → ``inference`` →
 ``calculate_metrics``, ``plot_results --table``) and run one of the port's
 tools on the CPU (``tools.sed_search_bench``, with a CLI child of
-``tools.run_cli``), then check ``sys.modules``; a source scan checks every
+``tools.run_cli``), then check ``sys.modules``; ``graft_entry``'s forward
+and a dry run on 2 spawned gloo ranks run with the forbidden packages
+shadowed by ones that raise when imported; a source scan checks every
 module of the port (its ``tools`` and ``examples`` too) and
 ``chip_smoke.py`` for such imports, and for ``bench.py``. The lazy
 ``sedt.audio_io`` resolves in a fresh process, as ``sedx.audio_io`` does. The port ships its own copy of the
@@ -135,6 +137,39 @@ def test_audio_io_resolves_lazily_in_a_fresh_process():
     assert proc.stdout.strip().splitlines()[-1] == "OK"
 
 
+def test_graft_entry_and_its_ranks_load_no_jax(tmp_path):
+    """``graft_entry``'s forward on the CPU and ``dryrun_multichip`` on 2
+    spawned gloo ranks, with each forbidden package shadowed by one that
+    raises when imported: a rank (or the parent) that imported one would
+    fail the run, so no ``sys.modules`` there holds one. The shadows are
+    first shown to stand in front of the real packages."""
+    stubs = tmp_path / "stubs"
+    for name in FORBIDDEN:
+        (stubs / name).mkdir(parents=True)
+        (stubs / name / "__init__.py").write_text(
+            f"raise RuntimeError('{name} imported')\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(stubs), str(REPO)]),
+               CUDA_VISIBLE_DEVICES="")
+    shadowed = subprocess.run([sys.executable, "-c", "import jax"], cwd=tmp_path,
+                              env=env, capture_output=True, text=True, timeout=60)
+    assert shadowed.returncode != 0 and "jax imported" in shadowed.stderr
+    code = (
+        "import sys\n"
+        "from sound_event_detection_dcase2017_task4_torch import graft_entry\n"
+        "forward, args = graft_entry.entry(device='cpu')\n"
+        "clip, frame = forward(*args)\n"
+        "assert clip.shape == (4, 17) and frame.shape == (4, 201, 17)\n"
+        "out = graft_entry.dryrun_multichip(2, device='cpu', timeout=240)\n"
+        "assert out['eval_shape'] == (3, 17)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print('LOADED', bad)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "dryrun_multichip(2): OK" in proc.stdout
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -155,7 +190,8 @@ def test_port_sources_import_no_jax():
             "tools/__init__.py", "tools/mfu.py", "tools/coldstart_probe.py",
             "tools/sed_search_bench.py", "tools/scale_soak.py",
             "tools/hard_benchmark.py", "tools/parity_check.py",
-            "examples/minimal_train.py", "examples/streaming_live.py"} <= names
+            "examples/minimal_train.py", "examples/streaming_live.py",
+            "graft_entry.py"} <= names
     for path in files:
         for name in _imports(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"

@@ -2,9 +2,10 @@
 compute what one process computes, and what the JAX package's N-device mesh
 computes.
 
-Each launch (``tests/torch_parallel_worker.py``) spawns its ranks once in a
-module-scoped fixture, over a ``FileStore`` in ``tmp_path``, and the tests
-read what they saved. Small widths (``SedCnn(channels=(8, 16),
+Each launch (``tests/torch_parallel_worker.py``, through the port's
+``parallel.launch``) starts its ranks once in a module-scoped fixture, over a
+``FileStore`` in a temporary directory, and the tests read what they
+returned. Small widths (``SedCnn(channels=(8, 16),
 head="att")``) on a log-mel batch of 12 × 64 frames × 64 bins, which splits
 over 2, 3 (the odd mirror) and 4 ranks. At ``tests/test_parallel.py``'s
 tolerances (float32, sums taken in another order):
@@ -80,14 +81,13 @@ def spec():
 
 
 @pytest.fixture(scope="module")
-def launches(spec, tmp_path_factory):
+def launches(spec):
     """The step job at 2, 3 and 4 ranks (the JAX comparison at 2 and 4)."""
-    root = tmp_path_factory.mktemp("parallel")
     out = {}
     for n in SIZES:
         s = dict(spec) if n in JAX_SIZES else {k: v for k, v in spec.items()
                                                  if k != "init"}
-        out[n] = worker.launch("step", n, root / f"step{n}", s)
+        out[n] = worker.launch("step", n, s)
     return out
 
 
@@ -303,7 +303,7 @@ def cli(tmp_path_factory):
         worker._train(ws["ws1_long"], "--device_cache=on", "--stop_iteration=4")
         straight_idx = list(seen["idx"][1:])
         shutil.copytree(ws["ws1_long"], ws["ws1_resumed"], symlinks=True)
-        ranks = worker.launch("cli", 2, root / "launch", ws)
+        ranks = worker.launch("cli", 2, ws)
         shutil.copytree(ws["ws2_long"], ws["ws2_in_one"], symlinks=True)
         seen["idx"].clear()
         in_one = worker._train(ws["ws2_in_one"], "--device_cache=on",
@@ -487,3 +487,19 @@ def test_join_takes_the_group_torchrun_describes(monkeypatch):
     assert args == ("gloo",) and kw["init_method"] == "env://"
     with pytest.raises(RuntimeError, match="CUDA"):
         parallel.join(None)                 # no card here
+
+
+def test_join_meets_at_an_init_method_even_alone(monkeypatch):
+    """``parallel.join(init_method=...)``, as ``parallel.launch``'s ranks
+    call it: the group is joined there, also for a job of one."""
+    from sound_event_detection_dcase2017_task4_torch import parallel
+
+    calls = []
+    monkeypatch.setattr(parallel.mesh.dist, "init_process_group",
+                        lambda *a, **k: calls.append((a, k)))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    url = "file:///nowhere/store?rank=0&world_size=1"
+    assert parallel.join("cpu", init_method=url) == (torch.device("cpu"), True)
+    ((args, kw),) = calls
+    assert args == ("gloo",) and kw["init_method"] == url
+    assert kw["timeout"] == parallel.mesh.TIMEOUT

@@ -14,16 +14,12 @@ they have not all ended within ``timeout`` seconds.
 
 from __future__ import annotations
 
-import datetime
-import os
 import shutil
 import sys
-import time
 
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
 from sound_event_detection_dcase2017_task4_torch import main, parallel, train
 from sound_event_detection_dcase2017_task4_torch.models import SedCnn
@@ -39,43 +35,20 @@ SMALL = dict(classes_num=17, channels=(8, 16), head="att")
 DRAWN = dict(SMALL, dropout=0.2, dtype=torch.float64)
 
 
-def launch(job: str, n: int, workdir, spec: dict, timeout: float = 240.0):
-    """Run ``JOBS[job](spec)`` in ``n`` spawned ranks; returns each rank's
-    result, in rank order."""
-    workdir = str(workdir)
-    os.makedirs(workdir, exist_ok=True)
-    spec_path = os.path.join(workdir, "spec.pt")
-    torch.save(spec, spec_path)
-    ctx = mp.start_processes(_child, args=(n, workdir, job), nprocs=n,
-                             join=False, start_method="spawn")
-    deadline = time.monotonic() + timeout
-    try:
-        while not ctx.join(timeout=max(0.0, deadline - time.monotonic())):
-            if time.monotonic() >= deadline:
-                raise TimeoutError(f"{job} on {n} ranks did not end within "
-                                   f"{timeout} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-                p.join(10)
-    return [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False)
-            for r in range(n)]
+def launch(job: str, n: int, spec: dict, timeout: float = 240.0):
+    """Run ``JOBS[job](spec)`` in ``n`` ranks; returns each rank's result,
+    in rank order."""
+    return parallel.launch("torch_parallel_worker:run", n, arg=(job, spec),
+                           device="cpu", timeout=timeout)
 
 
-def _child(rank: int, n: int, workdir: str, job: str) -> None:
-    torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", store=dist.FileStore(os.path.join(workdir, "store"), n),
-        rank=rank, world_size=n, timeout=datetime.timedelta(seconds=60))
-    try:
-        spec = torch.load(os.path.join(workdir, "spec.pt"), weights_only=False)
-        out = JOBS[job](spec)
-        out["forbidden_modules"] = sorted(
-            m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
-        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
-    finally:
-        dist.destroy_process_group()
+def run(arg, device) -> dict:
+    """A rank's body: the job, and the forbidden packages it loaded."""
+    job, spec = arg
+    out = JOBS[job](spec)
+    out["forbidden_modules"] = sorted(
+        m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+    return out
 
 
 def _running(model) -> dict:
