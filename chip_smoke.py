@@ -124,7 +124,9 @@ random weights, in phases that each raise on failure:
    ``coldstart_probe``'s four fresh processes; ``scale_soak`` on a packed
    256/64/64-clip workspace for 20 lazy host-fed steps; ``hard_benchmark
    matrix`` on the flagship, one seed and the ``no_normalization`` control
-   at 20 steps over a 64/488/488-clip hard corpus; ``parity_check`` in dry
+   at 20 steps over a 64/488/488-clip hard corpus (the waveform kernel
+   packs the log-mel features; its children, with the JAX tool's argv,
+   train and score on them and launch no kernel); ``parity_check`` in dry
    mode; ``minimal_train`` (30 steps) and ``streaming_live`` on the hard
    matrix's workspace. The tools that run the CLI run it in child
    processes, each of which prints its kernel counters and its calls of
@@ -2256,7 +2258,6 @@ def phase_parallel(torch, sedt, card, bank, targets, scale, ws):
 TOOLS_SOAK = (256, 64, 64)          # scale_soak's workspace: train/test/eval
 TOOLS_SOAK_STEPS, TOOLS_SOAK_EVAL, TOOLS_BATCH = 20, 10, 32
 TOOLS_HARD_TRAIN, TOOLS_HARD_STEPS = 64, 20
-TOOLS_HARD_TEST = 488               # the tool packs the full test split
 TOOLS_CONTROL = "no_normalization"
 MINIMAL_STEPS = 30                  # minimal_train's own step count
 
@@ -2397,10 +2398,12 @@ def phase_tools(torch, sedt, card, root):
         f"--num_train={TOOLS_HARD_TRAIN}",
         f"--iterations={TOOLS_HARD_STEPS}",
         f"--batch_size={TOOLS_BATCH}"]))
+    # the children run the JAX tool's argv: train and score on the packed
+    # log-mel features, which the waveform kernel computed at the pack
     want = {"features pack_synthetic": dict(logmel=True),
-            "main train": dict(bank=True),
-            "tools.hard_benchmark train-control": dict(bank=True),
-            "main inference": dict(logmel=-(-TOOLS_HARD_TEST // TOOLS_BATCH)),
+            "main train": {},
+            "tools.hard_benchmark train-control": {},
+            "main inference": {},
             "main calculate_metrics": {}}
     for c in children:
         _child_launches(c, f"hard_benchmark {c['run']}", **want[c["run"]])

@@ -174,6 +174,8 @@ def logmel_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
     frontend computes it: gather the rows, decode an integer bank as
     ``float32(q) · wave_scale``, un-stage, :func:`logmel`."""
     check_bank(bank, cfg, wave_scale)
+    if isinstance(idx, np.ndarray):     # a view with negative strides too
+        idx = np.ascontiguousarray(idx)
     idx = torch.as_tensor(idx, dtype=torch.long).to(bank.device)
     rows = bank.index_select(0, idx)
     if not rows.is_floating_point():

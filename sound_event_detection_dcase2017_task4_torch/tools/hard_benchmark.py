@@ -9,11 +9,11 @@ INTENTIONALLY BROKEN controls (see ``CONTROLS``), of which at least one
 must measurably regress, scores every final checkpoint on the full test
 split and prints the RESULTS.md tables.
 
-Every run trains from the int16 waveforms (``--feature_source=waveform``):
-on the card the device cache stages the corpus and the bank kernel makes
-each batch's log-mel, and ``inference`` runs the waveform kernel. The JAX
-matrix trained on the packed log-mel features, which the same frontend
-computed from the same clips before the int16 rounding.
+Every child gets the JAX tool's argv: ``train``, ``inference`` and
+``calculate_metrics`` run on the CLI's default ``--feature_source``, the
+packed log-mel features, as the JAX matrix does. On the card the waveform
+kernel computes those features when ``features pack_synthetic`` packs the
+corpus; the device cache then stages them and no child runs a frontend.
 
 Usage::
 
@@ -49,7 +49,6 @@ MODELS = [
     "Cnn_9layers_Transformer_FrameAtt",
 ]
 CONTROL_MODEL = "Cnn_9layers_Gru_FrameAtt"
-FEATURE_SOURCE = "waveform"
 
 
 def _run(module, argv, device, children) -> None:
@@ -70,8 +69,7 @@ def _train_args(ws, model, seed, iterations, batch_size, extra=()):
         "train", f"--workspace={ws}", f"--model_type={model}",
         f"--batch_size={batch_size}", f"--seed={seed}",
         "--augmentation=mixup", f"--stop_iteration={iterations}",
-        "--eval_interval=500", "--eval_max_iteration=10",
-        f"--feature_source={FEATURE_SOURCE}", *extra,
+        "--eval_interval=500", "--eval_max_iteration=10", *extra,
     ]
 
 
@@ -157,8 +155,7 @@ def _full_eval(run_ws, model, seed, batch_size, device, children) -> None:
         return
     common = [f"--workspace={run_ws}", f"--model_type={model}",
               f"--batch_size={batch_size}", f"--seed={seed}",
-              "--augmentation=mixup", "--data_type=testing",
-              f"--feature_source={FEATURE_SOURCE}"]
+              "--augmentation=mixup", "--data_type=testing"]
     _run("main", ["inference", *common], device, children)
     _run("main", ["calculate_metrics", *common, f"--metrics_out={out}"],
          device, children)

@@ -344,6 +344,21 @@ def test_bank_frontend_matches_jax(kind):
         got, stft.logmel(torch.from_numpy(dec[idx]), cfg).numpy())
 
 
+def test_bank_frontend_takes_a_reversed_index_view():
+    """A numpy index with negative strides (``idx[::-1]``) gathers the rows
+    in that order, as the JAX package's XLA bank frontend does."""
+    cfg, jcfg, q, _ = _bank_case()
+    scale = 1.0 / 32768.0
+    bank = stft.prepare_chunks(q, cfg)
+    idx = np.array([0, 1, 3, 2], np.int32)[::-1]
+    fn = stft.make_logmel_bank_fn(cfg, wave_scale=scale)
+    got = fn(torch.from_numpy(bank), idx).numpy()
+    np.testing.assert_array_equal(
+        got, fn(torch.from_numpy(bank), idx.copy()).numpy())
+    _assert_db_close(got, np.asarray(jstft.make_logmel_bank_fn(
+        jcfg, use_pallas=False, wave_scale=scale)(jnp.asarray(bank), idx)))
+
+
 def test_staged_input_equals_waveform_input():
     """3-D staged rows to ``make_logmel_fn`` give exactly the 2-D result, as
     in the JAX package, whose XLA frontend they match to the usual bound."""

@@ -352,14 +352,44 @@ def test_resume_gate_reads_the_ports_pth_checkpoints(tmp_path):
 
 
 def test_train_args_keep_the_jax_recipe_on_the_waveform():
+    """The train child's argv is the JAX tool's, flag for flag: no
+    ``--feature_source``, so both train on the packed log-mel features
+    (which the waveform kernel computed at the pack)."""
     args = hard_benchmark._train_args("/ws", "M", 7, 3000, 32,
                                       extra=("--resume_iteration=500",))
     jargs = _jax_tool("hard_benchmark")._train_args(
         "/ws", "M", 7, 3000, 32, extra=("--resume_iteration=500",))
-    assert [a for a in args if not a.startswith("--feature_source")] == jargs
-    assert "--feature_source=waveform" in args
+    assert args == jargs
+    assert not any(a.startswith("--feature_source") for a in args)
     assert hard_benchmark.MODELS == _jax_tool("hard_benchmark").MODELS
     assert hard_benchmark.CONTROLS.keys() == _jax_tool("hard_benchmark").CONTROLS.keys()
+
+
+def test_scoring_children_get_the_jax_tools_argv(tmp_path, monkeypatch):
+    """``_full_eval``'s ``inference`` and ``calculate_metrics`` children
+    get the JAX tool's argv flag for flag (the JAX tool runs ``python -m
+    <pkg>.main <argv>``; the port runs ``main`` with the same argv). The
+    stated extras: none."""
+    jtool = _jax_tool("hard_benchmark")
+    got = {"port": [], "jax": []}
+
+    def jax_run(cmd):
+        assert cmd[1:3] == ["-m", "sound_event_detection_dcase2017_task4_tpu.main"], cmd
+        got["jax"].append(["main", *cmd[3:]])
+
+    monkeypatch.setattr(hard_benchmark, "_run",
+                        lambda module, argv, device, children:
+                        got["port"].append([module, *argv]))
+    monkeypatch.setattr(jtool, "_run", jax_run)
+    for tool in (hard_benchmark, jtool):
+        monkeypatch.setattr(tool, "_latest_ckpt_iter", lambda *a: 3000)
+    hard_benchmark._full_eval(str(tmp_path), "M", 7, 32, "cpu", [])
+    jtool._full_eval(str(tmp_path), "M", 7, 32)
+    assert [c[:2] for c in got["port"]] == [["main", "inference"],
+                                            ["main", "calculate_metrics"]]
+    assert got["port"] == got["jax"]
+    assert not any(a.startswith("--feature_source")
+                   for c in got["port"] for a in c)
 
 
 @pytest.fixture
