@@ -152,11 +152,33 @@ random weights, in phases that each raise on failure:
    the data-parallel step to the step with no mesh at the JAX file's
    tolerances and reporting its waveform kernel launches (3: two steps and
    the ragged eval).
+14. (run right after phase 8, on its corpus) a run the JAX package
+   trained, resumed on the card: the script writes the JAX package's
+   ``7_iterations.ckpt`` of the full-width flagship itself (the card's
+   machine has no JAX: its own flax-msgpack writer and the inverse of the
+   port's weight plan, ``msgpack_pack``/``flax_tree``/``jax_ckpt_bytes``;
+   seeded weights, BatchNorm statistics and Adam moments, the GRU's r/z
+   moments zero, the ``opt_state`` of warmup 20 and clip 1.0), its
+   ``.optjson`` and a ``.datastate.pkl`` two batches ahead, as a JAX run's
+   prefetch thread leaves it, in a fresh workspace; then ``main train
+   --resume_iteration=7`` in bf16 at batch 32 over the device cache for 3
+   steps (bank kernel launches counted from zero, the plain frontends
+   never) and ``inference`` on its last checkpoint (1 waveform launch).
+   After the import every variable, moment and count equals the tree
+   written bit for bit and the learning rate is 7/20 of 1e-3; the resumed
+   batches equal those of a generator loaded from the same
+   ``.datastate.pkl``; the bank kernel on the first resumed batch and the
+   waveform kernel on the inference batch are held to their plain
+   versions (0.1 dB, rtol 2e-3); the first resumed step in f32 (TF32 off,
+   dropout 0, mixup λ from the key-seeded generator, 4 clips) is held card
+   against CPU at the train-step tolerances. It prints the import's
+   seconds and each resumed step's time.
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
 ``launches_cli`` of phase 8, ``launches_zoo`` of phase 9, ``launches_runme``
 of phase 10, ``launches_parallel`` of phase 11, ``launches_tools`` of phase
-12, ``launches_entry`` of phase 13), then as its last line
+12, ``launches_entry`` of phase 13, ``launches_resume`` of phase 14), then
+as its last line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 when no CUDA device is available or any phase fails. It imports nothing of
 the JAX package.
@@ -1418,6 +1440,445 @@ def phase_cli(torch, sedt, card, root):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: resume a run the JAX package trained (a .ckpt written here)
+# ---------------------------------------------------------------------------
+RESUME_N = 7                 # the iteration of the JAX-layout checkpoint
+RESUME_STEPS = 3             # bf16 steps the resumed run takes
+RESUME_RECIPE = {"learning_rate": 1e-3, "warmup_steps": 20, "grad_clip": 1.0}
+RESUME_KEY = (0x1234ABCD, 0x9E3779B9)   # the checkpoint's PRNG key
+RESUME_LOOKAHEAD = 2         # batches JAX's prefetch thread draws ahead
+RESUME_STEP_CLIPS = 4        # the f32 card-vs-CPU step's batch
+
+
+def msgpack_pack(obj) -> bytes:
+    """``obj`` (dicts with str keys, lists, str, bytes, non-negative ints and
+    numpy arrays: what a flax checkpoint holds) as msgpack, each array as
+    flax's ext type 1, ``(shape, dtype name, C-order bytes)`` packed in its
+    turn, and each dict's keys in sorted order, as
+    ``flax.serialization.msgpack_serialize`` writes them (arrays under its
+    1 GiB chunk size)."""
+    import struct
+
+    out = bytearray()
+
+    def header(n, fix, fix_max, codes):
+        if fix is not None and n <= fix_max:
+            out.append(fix | n)
+            return
+        for code, fmt in zip(codes, "BHIQ"):
+            if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+                out.append(code)
+                out.extend(struct.pack(">" + fmt, n))
+                return
+        raise ValueError(f"msgpack: {n} is too large")
+
+    def pack(o):
+        if isinstance(o, int) and not isinstance(o, bool) and o >= 0:
+            header(o, 0x00, 0x7F, (0xCC, 0xCD, 0xCE, 0xCF))
+        elif isinstance(o, str):
+            b = o.encode("utf-8")
+            header(len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+            out.extend(b)
+        elif isinstance(o, bytes):
+            header(len(o), None, -1, (0xC4, 0xC5, 0xC6))
+            out.extend(o)
+        elif isinstance(o, list):
+            header(len(o), 0x90, 15, (None, 0xDC, 0xDD))
+            for x in o:
+                pack(x)
+        elif isinstance(o, dict):
+            header(len(o), 0x80, 15, (None, 0xDE, 0xDF))
+            for k, v in sorted(o.items()):       # flax's order
+                if not isinstance(k, str):
+                    raise TypeError(f"msgpack: key {k!r} is not a str")
+                pack(k)
+                pack(v)
+        elif isinstance(o, np.ndarray):
+            payload = msgpack_pack([list(o.shape), o.dtype.name,
+                                    np.ascontiguousarray(o).tobytes()])
+            fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+            if len(payload) in fixext:
+                out.append(fixext[len(payload)])
+            else:
+                header(len(payload), None, -1, (0xC7, 0xC8, 0xC9))
+            out.append(1)                                # flax's ndarray
+            out.extend(payload)
+        else:
+            raise TypeError(f"msgpack: {o!r} is not supported")
+
+    pack(obj)
+    return bytes(out)
+
+
+def flax_tree(tensors: dict) -> dict:
+    """The flax ``{"params", "batch_stats"}`` tree of a ``SedCnn`` of conv
+    blocks with a BiGRU or none and an attention or average head (the
+    flagship's family) from ``{port name: array}``: the inverse of the
+    port's weight plan (``weights._plan``). An OIHW conv weight becomes an
+    HWIO ``kernel``, a ``weight [out, in]`` a ``kernel [in, out]``, each GRU
+    gate's kernel and bias a dense of its own (``GRUCell_0`` forward,
+    ``GRUCell_1`` backward); ``bias_hh``'s r and z slices, which flax does
+    not have, must be zero. Raises on a name it does not know."""
+    params, stats = {}, {}
+
+    def put(tree, keys, value):
+        for k in keys[:-1]:
+            tree = tree.setdefault(k, {})
+        if keys[-1] in tree:
+            raise KeyError(f"flax key {'/'.join(keys)} twice")
+        tree[keys[-1]] = np.ascontiguousarray(value, dtype=np.float32)
+
+    for name, v in tensors.items():
+        v, parts = np.asarray(v, np.float32), name.split(".")
+        if parts[0] == "blocks" and len(parts) == 5:
+            _, i, kind, j, leaf = parts
+            if kind == "convs" and leaf == "weight":
+                put(params, (f"block{i}", f"Conv_{j}", "kernel"),
+                    v.transpose(2, 3, 1, 0))
+                continue
+            where = {"weight": (params, "scale"), "bias": (params, "bias"),
+                     "running_mean": (stats, "mean"),
+                     "running_var": (stats, "var")}
+            if kind == "bns" and leaf in where:
+                tree, key = where[leaf]
+                put(tree, (f"block{i}", f"BatchNorm_{j}", key), v)
+                continue
+        elif parts[:2] == ["gru", "rnn"] and len(parts) == 3:
+            leaf = parts[2]
+            reverse = leaf.endswith("_reverse")
+            kind = leaf[:-len("_reverse")] if reverse else leaf
+            cell = ("BiGRU_0", "GRUCell_1" if reverse else "GRUCell_0")
+            if kind in ("weight_ih_l0", "weight_hh_l0"):
+                gates = ("ir", "iz", "in") if kind == "weight_ih_l0" else (
+                    "hr", "hz", "hn")
+                for g, part in zip(gates, np.split(v.T, 3, axis=1)):
+                    put(params, cell + (g, "kernel"), part)
+                continue
+            if kind == "bias_ih_l0":
+                for g, part in zip(("ir", "iz", "in"), np.split(v, 3)):
+                    put(params, cell + (g, "bias"), part)
+                continue
+            if kind == "bias_hh_l0":
+                r, z, n = np.split(v, 3)
+                if r.any() or z.any():
+                    raise ValueError(f"{name}: the r/z slices are not zero")
+                put(params, cell + ("hn", "bias"), n)
+                continue
+        elif len(parts) == 3 and parts[0] == "att_block" and parts[1] in (
+                "att", "cla"):
+            dense = ("AttBlock_0", "Dense_0" if parts[1] == "att" else "Dense_1")
+            put(params, dense + ({"weight": "kernel", "bias": "bias"}[parts[2]],),
+                v.T if parts[2] == "weight" else v)
+            continue
+        elif len(parts) == 2 and parts[0] == "dense":
+            put(params, ("Dense_0", {"weight": "kernel", "bias": "bias"}[parts[1]]),
+                v.T if parts[1] == "weight" else v)
+            continue
+        raise KeyError(f"no flax key for {name!r}")
+    return {"params": params, "batch_stats": stats}
+
+
+def jax_ckpt_bytes(tensors: dict, mu: dict, nu: dict, *, count: int,
+                   step: int, key, warmup: int, clip: float) -> bytes:
+    """A JAX package ``<it>_iterations.ckpt`` (flax ``to_bytes`` of its
+    ``TrainState``) holding the port model state ``tensors`` and the Adam
+    moments ``mu``, ``nu`` (``{parameter name: array}``), in the
+    ``opt_state`` layout of the JAX ``default_optimizer`` for ``warmup``
+    and ``clip``: ``(adam, schedule)``, behind an empty clip state when
+    ``clip``. Both counts are ``count``; ``key`` is the ``uint32[2]`` PRNG
+    key."""
+    variables = flax_tree(tensors)
+    adam = {"count": np.asarray(count, np.int32),
+            "mu": flax_tree(mu)["params"], "nu": flax_tree(nu)["params"]}
+    opt = {"0": adam, "1": {"count": np.asarray(count, np.int32)} if warmup else {}}
+    if clip:
+        opt = {"0": {}, "1": opt}
+    return msgpack_pack({"step": np.asarray(step, np.int32),
+                         "params": variables["params"],
+                         "batch_stats": variables["batch_stats"],
+                         "opt_state": opt,
+                         "rng": np.asarray(key, np.uint32)})
+
+
+def resume_state(torch, seed: int = 5):
+    """The state a JAX run of the flagship holds at ``RESUME_N``, with the
+    weights of the port's seeded init: ``(tensors, mu, nu)`` as numpy,
+    BatchNorm statistics and moments drawn from ``seed`` (the GRU's r/z
+    moments zero, as training leaves them)."""
+    from sound_event_detection_dcase2017_task4_torch.models import (
+        MODEL_REGISTRY, SedCnn)
+
+    model = SedCnn(generator=torch.Generator().manual_seed(seed),
+                   **MODEL_REGISTRY[MODEL])
+    rng = np.random.default_rng(seed)
+    tensors = {k: v.detach().numpy().copy() for k, v in model.state_dict().items()}
+    for k, v in tensors.items():
+        if k.endswith("running_mean"):
+            tensors[k] = rng.normal(0.0, 0.5, v.shape).astype(np.float32)
+        elif k.endswith("running_var"):
+            tensors[k] = rng.uniform(0.5, 2.0, v.shape).astype(np.float32)
+    shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    mu = {n: rng.normal(0.0, 1e-3, s).astype(np.float32) for n, s in shapes.items()}
+    nu = {n: (1e-6 * rng.random(s)).astype(np.float32) for n, s in shapes.items()}
+    for moments in (mu, nu):
+        for n, m in moments.items():
+            if n.startswith("gru.rnn.bias_hh"):
+                m[: 2 * m.shape[0] // 3] = 0.0
+    return tensors, mu, nu
+
+
+def phase_jax_resume(torch, sedt, card, root, cli_ws):
+    """Phase 14 (see the module docstring), in a fresh workspace on phase
+    8's corpus. Returns each kernel's launches on its main path."""
+    from sound_event_detection_dcase2017_task4_torch import (
+        checkpoints, main as cli, train)
+    from sound_event_detection_dcase2017_task4_torch.data import (
+        DataGenerator, load_scalar, read_split)
+    from sound_event_detection_dcase2017_task4_torch.models import (
+        MODEL_REGISTRY, SedCnn)
+    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+
+    cfg = sedt.config.DEFAULT
+    ws = os.path.join(root, "ws_jax")
+    os.makedirs(ws)
+    for d in ("features", "scalars", "synth_dataset"):
+        os.symlink(os.path.join(cli_ws, d), os.path.join(ws, d))
+    ckpt_dir = os.path.join(ws, "checkpoints", "main", f"model_type={MODEL}",
+                            *CLI_RUN)
+    os.makedirs(ckpt_dir)
+    base = os.path.join(ckpt_dir, f"{RESUME_N}_iterations")
+    path = base + ".ckpt"
+
+    # what a JAX run of the flagship leaves at RESUME_N: .ckpt, .optjson and
+    # the stream position its prefetch thread had drawn to
+    t0 = time.perf_counter()
+    tensors, mu, nu = resume_state(torch)
+    with open(path, "wb") as f:
+        f.write(jax_ckpt_bytes(tensors, mu, nu, count=RESUME_N, step=RESUME_N,
+                               key=RESUME_KEY, warmup=RESUME_RECIPE["warmup_steps"],
+                               clip=RESUME_RECIPE["grad_clip"]))
+    t_write = time.perf_counter() - t0
+    with open(base + ".optjson", "w") as f:
+        json.dump(RESUME_RECIPE, f)
+    reader = read_split(os.path.join(ws, "features", "training.h5"),
+                        load_waveform=True)
+
+    def generator():
+        return DataGenerator(reader, batch_size=CLI_BATCH, seed=1234,
+                             feature_source="waveform")
+
+    gen = generator()
+    stream = gen.generate_train(yield_indices=True)
+    for _ in range(RESUME_N + RESUME_LOOKAHEAD):
+        next(stream)
+    position = gen.state_dict()
+    with open(base + ".datastate.pkl", "wb") as f:
+        pickle.dump(position, f)
+    print(f"[jax-resume] wrote a JAX-layout {MODEL} checkpoint at iteration "
+          f"{RESUME_N} ({os.path.getsize(path)} bytes of flax msgpack, "
+          f"{t_write:.3f} s; opt_state clip → (adam, schedule) for "
+          f"{RESUME_RECIPE}), its .optjson and a .datastate.pkl "
+          f"{RESUME_LOOKAHEAD} batches ahead")
+
+    seen = {"idx": [], "events": [], "imported": None}
+    make_train_step = train.make_train_step
+    import_state = checkpoints.import_jax_train_state
+
+    def recording_make_train_step(*a, **k):
+        step = make_train_step(*a, **k)
+
+        def rec(x, y):
+            seen["idx"].append(torch.as_tensor(x).numpy().copy())
+            start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = step(x, y)
+            stop.record()
+            seen["events"].append((start, stop))
+            return out
+        return rec
+
+    def timed_import(p, state, opt_config=None):
+        t0 = time.perf_counter()
+        out = import_state(p, state, opt_config)
+        torch.cuda.synchronize()
+        seen["import_s"] = time.perf_counter() - t0
+        seen["imported"] = {
+            "device": state.device, "step": state.step,
+            "lr": state.optimizer.param_groups[0]["lr"],
+            "last_epoch": state.scheduler.last_epoch,
+            "model": {k: v.detach().cpu().clone()
+                      for k, v in state.model.state_dict().items()},
+            "opt": {n: {k: v.detach().cpu().clone()
+                        for k, v in state.optimizer.state[p].items()}
+                    for n, p in state.model.named_parameters()}}
+        return out
+
+    train.make_train_step = recording_make_train_step
+    checkpoints.import_jax_train_state = timed_import
+    try:
+        with _PlainGuard(torch, cfg) as guard:
+            # ---- the main path: counters zeroed just before, read just after
+            logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+            t0 = time.perf_counter()
+            run = cli.main(["train", f"--workspace={ws}", *CLI_ARGS, "--dtype=bf16",
+                            "--device_cache=on", f"--resume_iteration={RESUME_N}",
+                            f"--stop_iteration={RESUME_N + RESUME_STEPS}",
+                            "--eval_interval=1000"])
+            torch.cuda.synchronize()
+            t_train = time.perf_counter() - t0
+            launches = {"logmel": logmel_cuda.LAUNCHES,
+                        "logmel_bank": logmel_cuda.BANK_LAUNCHES}
+            # ------------------------------------------------------------------
+            logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+            t0 = time.perf_counter()
+            cli.main(["inference", f"--workspace={ws}", *CLI_ARGS, "--dtype=bf16",
+                      "--data_type=testing"])
+            torch.cuda.synchronize()
+            t_inf = time.perf_counter() - t0
+            inf_launches = {"logmel": logmel_cuda.LAUNCHES,
+                            "logmel_bank": logmel_cuda.BANK_LAUNCHES}
+            # ------------------------------------------------------------------
+            calls = dict(guard.calls)
+    finally:
+        train.make_train_step = make_train_step
+        checkpoints.import_jax_train_state = import_state
+    if launches != {"logmel": 0, "logmel_bank": RESUME_STEPS}:
+        raise AssertionError(f"the resumed run launched {launches}, expected "
+                             f"{RESUME_STEPS} bank kernels and no waveform one")
+    n_inf = -(-CLI_TEST // CLI_BATCH)
+    if inf_launches != {"logmel": n_inf, "logmel_bank": 0}:
+        raise AssertionError(f"inference launched {inf_launches}")
+    if any(calls.values()):
+        raise AssertionError(f"plain frontend ran on the card: {calls}")
+    if run["iteration"] != RESUME_N + RESUME_STEPS or not np.isfinite(run["loss"]):
+        raise AssertionError(f"the resumed run returned {run}")
+
+    # the import against the tree written, bit for bit
+    got = seen["imported"]
+    if got["device"].type != "cuda" or got["step"] != RESUME_N:
+        raise AssertionError(f"imported on {got['device']} at step {got['step']}")
+    for k, v in tensors.items():
+        if not torch.equal(got["model"][k], torch.from_numpy(v)):
+            raise AssertionError(f"imported {k} differs from the checkpoint's")
+    for n in mu:
+        s = got["opt"][n]
+        if not (torch.equal(s["exp_avg"], torch.from_numpy(mu[n]))
+                and torch.equal(s["exp_avg_sq"], torch.from_numpy(nu[n]))
+                and float(s["step"]) == RESUME_N):
+            raise AssertionError(f"imported Adam state of {n} differs")
+    want_lr = RESUME_RECIPE["learning_rate"] * RESUME_N / RESUME_RECIPE["warmup_steps"]
+    if got["last_epoch"] != RESUME_N or abs(got["lr"] - want_lr) > 1e-12 * want_lr:
+        raise AssertionError(f"the schedule resumed at {got['last_epoch']}, "
+                             f"lr {got['lr']} (want {want_lr})")
+    # the stream: the batches a generator loaded from the .datastate.pkl draws
+    gen = generator()
+    gen.load_state_dict(position)
+    stream = gen.generate_train(yield_indices=True)
+    want_idx = [next(stream)[0] for _ in range(RESUME_STEPS)]
+    if len(seen["idx"]) != RESUME_STEPS or not all(
+            np.array_equal(a, b) for a, b in zip(seen["idx"], want_idx)):
+        raise AssertionError(f"resumed batches {seen['idx']} vs the "
+                             f"generator's {want_idx}")
+    ckpt = torch.load(os.path.join(ckpt_dir, f"{RESUME_N + RESUME_STEPS}_iterations.pth"),
+                      map_location="cpu", weights_only=True)
+    if {float(s["step"]) for s in ckpt["optimizer"]["state"].values()} != {
+            RESUME_N + RESUME_STEPS} or ckpt["step"] != RESUME_N + RESUME_STEPS:
+        raise AssertionError("the resumed run's checkpoint has the wrong counts")
+    pred_path = os.path.join(ws, "predictions", "main", f"model_type={MODEL}",
+                             *CLI_RUN, "testing.pickle")
+    with open(pred_path, "rb") as f:
+        preds = pickle.load(f)
+    c, f = preds["clipwise_output"], preds["framewise_output"]
+    if (c.shape != (CLI_TEST, cfg.classes_num)
+            or f.shape != (CLI_TEST, cfg.frames_num, cfg.classes_num)
+            or not (np.isfinite(c).all() and np.isfinite(f).all())
+            or not (0.0 <= c.min() and c.max() <= 1.0)):
+        raise AssertionError(f"inference after the resume: {c.shape}, {f.shape}")
+    step_ms = [a.elapsed_time(b) for a, b in seen["events"]]
+    print(f"[jax-resume] main train --resume_iteration={RESUME_N} on the .ckpt, "
+          f"bf16, batch {CLI_BATCH}, device cache on: {RESUME_STEPS} steps in "
+          f"{t_train:.3f} s wall, loss {run['loss']:.5f}; bank kernel launches "
+          f"{launches['logmel_bank']}, waveform 0, plain frontend calls 0")
+    print(f"[jax-resume] import_jax_train_state {seen['import_s']:.3f} s; the "
+          f"first resumed step {step_ms[0]:.3f} ms, then "
+          + ", ".join(f"{ms:.3f}" for ms in step_ms[1:])
+          + f" ms (CUDA events) [{card}]")
+    print(f"[jax-resume] after the import: {len(tensors)} variables, "
+          f"{len(mu)} × (exp_avg, exp_avg_sq) and the counts equal the tree "
+          f"written bit for bit (step {RESUME_N}, lr {got['lr']:.3e} = "
+          f"{RESUME_N}/{RESUME_RECIPE['warmup_steps']} of "
+          f"{RESUME_RECIPE['learning_rate']}); the first {RESUME_STEPS} batches "
+          "equal a generator's loaded from the .datastate.pkl")
+    print(f"[jax-resume] inference on {RESUME_N + RESUME_STEPS}_iterations.pth "
+          f"in {t_inf:.3f} s: {inf_launches['logmel']} waveform kernel launch(es), "
+          f"predictions {preds['clipwise_output'].shape} finite")
+
+    # the kernels against their plain versions at this path's shapes
+    scale = float(reader.waveform.scale)
+    bank = torch.from_numpy(np.ascontiguousarray(stft.prepare_chunks(
+        np.ascontiguousarray(reader.waveform.raw), cfg))).cuda()
+    idx = seen["idx"][0]
+    got_b = logmel_cuda.logmel_cuda_bank(bank, idx, cfg, wave_scale=scale)
+    want_b = stft.logmel_bank(bank, idx, cfg, wave_scale=scale)
+    err_b, ok_b = _db_bound_ok(got_b, want_b)
+    test_reader = read_split(os.path.join(ws, "features", "testing.h5"),
+                             load_waveform=True)
+    wave = torch.from_numpy(np.asarray(
+        test_reader.waveform[np.arange(min(CLI_BATCH, CLI_TEST))], np.float32))
+    err_w, ok_w = _db_bound_ok(logmel_cuda.logmel_cuda(wave.cuda(), cfg),
+                               stft.logmel(wave.cuda(), cfg))
+    print(f"[jax-resume] bank kernel vs plain on the first resumed batch "
+          f"({len(idx)} of {bank.shape[0]} staged clips): max |Δ| {err_b:.3e} "
+          f"dB; waveform kernel vs plain on the inference batch "
+          f"{list(wave.shape)}: {err_w:.3e} dB (limit 0.1, linear within rtol 2e-3)")
+    if not (ok_b and ok_w):
+        raise AssertionError("a kernel disagrees with its plain version")
+
+    # the first resumed step in f32, TF32 off: the card against the CPU
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rows = seen["idx"][0][:RESUME_STEP_CLIPS]
+    bank4 = np.ascontiguousarray(stft.prepare_chunks(
+        np.ascontiguousarray(reader.waveform.raw[rows]), cfg))
+    scalar = load_scalar(os.path.join(ws, "scalars", "training.h5"))
+
+    def first_step(device):
+        model = SedCnn(dropout=0.0, **MODEL_REGISTRY[MODEL])
+        state = train.create_train_state(
+            model, cfg, device=device,
+            learning_rate=RESUME_RECIPE["learning_rate"],
+            warmup_steps=RESUME_RECIPE["warmup_steps"],
+            grad_clip=RESUME_RECIPE["grad_clip"])
+        checkpoints.import_jax_train_state(path, state, opt_config=RESUME_RECIPE)
+        step = train.make_train_step(
+            model, state, scalar=scalar, mixup_alpha=1.0,
+            bank=torch.from_numpy(bank4).to(device), wave_scale=scale,
+            bank_frontend=stft.make_logmel_bank_fn(cfg, wave_scale=scale))
+        m = step(np.arange(len(rows)), reader.target[rows])
+        return float(m["loss"]), float(m["grad_norm"]), {
+            k: v.detach().cpu() for k, v in model.state_dict().items()
+            if "running" in k}
+
+    try:
+        gpu, cpu = first_step("cuda"), first_step("cpu")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    d_loss = abs(gpu[0] - cpu[0]) / abs(cpu[0])
+    d_norm = abs(gpu[1] - cpu[1]) / abs(cpu[1])
+    d_stats = max(float(((gpu[2][k] - cpu[2][k]).abs()
+                         / (1e-5 + 1e-4 * cpu[2][k].abs())).max()) for k in cpu[2])
+    print(f"[jax-resume] the first resumed step in f32 (TF32 off, dropout 0, "
+          f"mixup λ from the key-seeded generator), {len(rows)} clips, card vs "
+          f"CPU: loss {gpu[0]:.7f} vs {cpu[0]:.7f} (rel {d_loss:.3e}, limit "
+          f"2e-5), grad-norm {gpu[1]:.6f} vs {cpu[1]:.6f} (rel {d_norm:.3e}, "
+          f"limit 1e-4), BN running statistics at {d_stats:.3f} of rtol 1e-4 / "
+          "atol 1e-5")
+    if not (d_loss <= 2e-5 and d_norm <= 1e-4 and d_stats <= 1.0):
+        raise AssertionError("the resumed step on the card disagrees with the CPU")
+    return {"logmel": inf_launches["logmel"], "logmel_bank": launches["logmel_bank"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 9: the rest of the zoo
 # ---------------------------------------------------------------------------
 ZOO = ("Cnn_9layers_Glu_AttPooling", "Cnn_9layers_Transformer_FrameAtt")
@@ -2588,6 +3049,7 @@ def main() -> int:
     root = tempfile.mkdtemp(prefix="sedx_cli_")
     try:
         cli, ws = phase_cli(torch, sedt, card, root)
+        resume = phase_jax_resume(torch, sedt, card, root, ws)
         zoo = phase_zoo(torch, sedt, card, bank, targets, scale, ws)
         kernel["launches_runme"] = phase_runme(torch, sedt, card, root, ws)
         dp = phase_parallel(torch, sedt, card, bank, targets, scale, ws)
@@ -2597,6 +3059,8 @@ def main() -> int:
         shutil.rmtree(root)
     kernel["launches_entry"] = phase_entry(torch, card)
     kernel["launches_cli"] = cli["logmel"]
+    kernel["launches_resume"] = resume["logmel"]
+    bank_kernel["launches_resume"] = resume["logmel_bank"]
     bank_kernel["launches_cli"] = cli["logmel_bank"]
     kernel["launches_zoo"] = zoo["logmel"]
     bank_kernel["launches_zoo"] = zoo["logmel_bank"]

@@ -19,8 +19,11 @@ directory the JAX CLI trained can be inferred and served:
 :func:`find_checkpoint` and :func:`latest_checkpoint` see both suffixes
 (``.pth`` wins at equal iterations), :func:`load_model` reads either, and
 the ``.optjson`` sidecar of either is ``<iteration>_iterations.optjson``.
-Resuming training from a ``.ckpt`` is not supported (its optax state is
-not carried over).
+:func:`import_jax_train_state` carries the whole training state of a
+``.ckpt`` into a port :class:`train.TrainState` — variables, optax's Adam
+moments and counts, the warmup schedule's count, the step and a seed for
+the generators from the PRNG key — so ``main train --resume_iteration``
+continues a run the JAX CLI trained. The port writes no ``.ckpt``.
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ import torch
 __all__ = ["save_checkpoint", "load_checkpoint", "load_model",
            "find_checkpoint", "latest_checkpoint", "load_opt_config",
            "check_opt_config", "prune_checkpoints", "state_dict",
-           "msgpack_restore", "import_jax_checkpoint"]
+           "msgpack_restore", "import_jax_checkpoint",
+           "import_jax_train_state"]
 
 _FNAME = "{iteration}_iterations.pth"
 _RE = re.compile(r"^(\d+)_iterations\.pth$")
@@ -333,10 +337,126 @@ def import_jax_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
     """Fill ``model`` from a JAX package checkpoint (``<it>_iterations.ckpt``,
     a flax ``TrainState``): its ``params`` and ``batch_stats`` go through
     ``weights.load_jax_variables``, which raises on any key it does not
-    consume. The optimizer state and the PRNG key are not carried over."""
-    from .weights import load_jax_variables
-
+    consume. The rest of the training state is read by
+    :func:`import_jax_train_state`."""
     with open(path, "rb") as f:
         tree = msgpack_restore(f.read())
+    return _import_variables(tree, model)
+
+
+def _import_variables(tree: dict, model: torch.nn.Module) -> torch.nn.Module:
+    from .weights import load_jax_variables
+
     return load_jax_variables(model, {"params": tree["params"],
                                       "batch_stats": tree.get("batch_stats", {})})
+
+
+def _adam_layout(opt_state) -> tuple:
+    """``(adam state, schedule state, warmup, clip)`` of the ``opt_state``
+    of ``train.default_optimizer`` in the JAX package, in flax's
+    state-dict form: ``optax.adam`` is ``{'0': adam, '1': schedule}``
+    (the schedule ``{count}`` with warmup, ``{}`` without), and with
+    clipping ``chain(clip_by_global_norm, adam)`` puts an empty clip state
+    in front, ``{'0': {}, '1': <adam>}``."""
+    clip = isinstance(opt_state, dict) and opt_state.get("0") == {}
+    chain = opt_state.get("1") if clip else opt_state
+    pair = isinstance(chain, dict) and set(chain) == {"0", "1"}
+    adam, schedule = (chain["0"], chain["1"]) if pair else (None, None)
+    if not (pair and isinstance(adam, dict)
+            and set(adam) == {"count", "mu", "nu"}
+            and isinstance(schedule, dict) and set(schedule) <= {"count"}):
+        raise ValueError("the opt_state is not one of the JAX package's "
+                         "default_optimizer layouts (adam, with or without a "
+                         "warmup schedule, with or without clip_by_global_norm "
+                         f"in front): {_outline(opt_state)}")
+    return adam, schedule, bool(schedule), clip
+
+
+def _outline(node):
+    if isinstance(node, dict):
+        return {k: _outline(v) for k, v in node.items()}
+    return type(node).__name__
+
+
+def _check_layout(path: str, recipe: dict, warmup: bool, clip: bool,
+                  what: str) -> None:
+    want = {"warmup_steps": bool(recipe.get("warmup_steps")),
+            "grad_clip": bool(recipe.get("grad_clip"))}
+    found = {"warmup_steps": warmup, "grad_clip": clip}
+    if want != found:
+        raise ValueError(
+            f"optimizer layout mismatch for {path}: {what} {recipe} asks for "
+            f"warmup {want['warmup_steps']} and clipping {want['grad_clip']}, "
+            f"but the checkpoint's opt_state layout has warmup "
+            f"{found['warmup_steps']} and clipping {found['grad_clip']}")
+
+
+def import_jax_train_state(path: str, state, opt_config: dict | None = None):
+    """Fill ``state`` (a :class:`train.TrainState` built by
+    ``create_train_state`` for the same model and optimizer recipe) in
+    place from a JAX package ``.ckpt`` and return it.
+
+    * ``params`` and ``batch_stats`` as :func:`import_jax_checkpoint`;
+    * optax Adam's ``mu`` and ``nu`` through ``weights.load_jax_moments``
+      into each parameter's ``exp_avg`` and ``exp_avg_sq``, its ``count``
+      into each parameter's ``step``;
+    * the warmup schedule's ``count`` into the ``LambdaLR``, so the next
+      step takes ``lr·min(count, n)/n`` as ``optax.linear_schedule`` does;
+    * ``step`` into ``state.step``;
+    * the PRNG key ``uint32[2] = (k0, k1)`` cannot go on as a torch
+      stream: the dropout generator is seeded with ``k0·2³² + k1`` and the
+      mixup generator is ``numpy.random.default_rng(k0·2³² + k1)``. A key
+      ``PRNGKey(s + 1)`` — the key of JAX's ``create_train_state(seed=s)`` —
+      so gives the port's ``create_train_state(seed=s)`` generators, and two
+      imports of one file draw the same streams (not JAX's).
+
+    The layout of ``opt_state`` (warmup or not, clipping or not) must agree
+    with the ``.optjson`` sidecar, with ``opt_config`` (checked against the
+    sidecar first, as :func:`load_checkpoint` does) and with ``state``'s
+    own optimizer; each disagreement raises, naming both."""
+    from .weights import load_jax_moments
+
+    if opt_config is not None:
+        check_opt_config(path, opt_config)
+    with open(path, "rb") as f:
+        tree = msgpack_restore(f.read())
+    adam, schedule, warmup, clip = _adam_layout(tree["opt_state"])
+    saved = load_opt_config(path)
+    if saved is not None:
+        _check_layout(path, saved, warmup, clip, "its .optjson recipe")
+    _check_layout(path, {"warmup_steps": state.scheduler is not None,
+                         "grad_clip": state.grad_clip}, warmup, clip,
+                  "this run's optimizer")
+    key = np.asarray(tree["rng"])
+    if key.dtype != np.uint32 or key.shape != (2,):
+        raise ValueError(f"{path}: the PRNG key is {key.dtype}{list(key.shape)}"
+                         ", not a raw threefry key uint32[2]")
+
+    model = state.model
+    _import_variables(tree, model)
+    mu, nu = load_jax_moments(model, adam["mu"]), load_jax_moments(model, adam["nu"])
+    count = int(adam["count"])
+    opt = state.optimizer
+    index = {id(p): i for i, p in enumerate(
+        p for group in opt.param_groups for p in group["params"])}
+    blob = opt.state_dict()
+    # onto the CPU as torch.load gives a .pth: load_state_dict moves each
+    # moment to its parameter's device and keeps the step on the host
+    blob["state"] = {index[id(p)]: {"step": torch.tensor(float(count)),
+                                    "exp_avg": mu[name],
+                                    "exp_avg_sq": nu[name]}
+                     for name, p in model.named_parameters()}
+    opt.load_state_dict(blob)
+    if state.scheduler is not None:
+        sched, k = state.scheduler, int(schedule["count"])
+        sched.last_epoch, sched._step_count = k, k + 1
+        lrs = [base * fn(k) for base, fn in zip(sched.base_lrs, sched.lr_lambdas)]
+        for group, lr in zip(opt.param_groups, lrs):
+            group["lr"] = lr
+        sched._last_lr = lrs
+    seed = (int(key[0]) << 32) | int(key[1])
+    state.dropout_generator.manual_seed(seed)
+    state.mixup_rng.bit_generator.state = (
+        np.random.default_rng(seed).bit_generator.state)
+    state.step = int(tree["step"])
+    return state

@@ -18,7 +18,12 @@ and threshold pickles have the JAX package's schema, so either package's
 metrics and threshold subcommands read the other's predictions.
 ``inference`` also reads a run the JAX CLI trained: with no ``.pth`` for
 the iteration asked, it loads the JAX ``<iter>_iterations.ckpt`` and adopts
-its ``.optjson`` recipe. ``train --resume_iteration`` takes only a ``.pth``.
+its ``.optjson`` recipe. ``train --resume_iteration`` continues either: a
+``.pth`` bit for bit, a JAX ``.ckpt`` from its whole training state
+(``checkpoints.import_jax_train_state``: variables, Adam moments and counts,
+the warmup count, the step; the generators seeded from its PRNG key) and its
+``.datastate.pkl`` as it is, so the stream goes on from where the JAX run's
+prefetch thread had drawn to, as a JAX resume does.
 
 Everything runs on the CUDA card unless the caller asks for the CPU:
 ``main(argv, device="cpu")``, as the tests do. ``--cuda`` is accepted for
@@ -369,14 +374,6 @@ def do_train(args) -> dict:
             raise FileNotFoundError(
                 f"no checkpoint for iteration {args.resume_iteration} under "
                 f"{paths['checkpoints']}")
-        if ckpt.endswith(".ckpt"):
-            raise ValueError(
-                f"--resume_iteration={args.resume_iteration}: only the JAX "
-                f"package's checkpoint {ckpt} exists, and resuming from a JAX "
-                "checkpoint is not supported: its optax optimizer state is not "
-                "carried over, and its .datastate.pkl is the prefetch thread's "
-                "look-ahead position, not the next batch's. Infer or serve "
-                "it, or train from scratch.")
         # a run resumes with no optimizer flags re-passed
         _adopt_ckpt_opt_config(args, ckpt)
     ctx = _build(args, for_train=True, mesh=mesh)
@@ -388,8 +385,10 @@ def do_train(args) -> dict:
     statistics = StatisticsContainer(paths["statistics"]) if rank0 else None
     if args.resume_iteration > 0:
         # every rank loads the same checkpoint (onto the CPU, then into its
-        # own device's tensors)
-        checkpoints.load_checkpoint(ckpt, state, opt_config=ctx["opt_config"])
+        # own device's tensors); a .ckpt was trained by the JAX package's CLI
+        load = (checkpoints.import_jax_train_state if ckpt.endswith(".ckpt")
+                else checkpoints.load_checkpoint)
+        load(ckpt, state, opt_config=ctx["opt_config"])
         logger.info("resumed from %s", ckpt)
         # keep the metric history before the resume point; the resumed run
         # evaluates again at the resume iteration when the cadence aligns
@@ -397,7 +396,7 @@ def do_train(args) -> dict:
             statistics.load(args.resume_iteration - 1)
             logger.info("statistics history restored: %d records",
                         len(statistics.statistics_list))
-        dstate = ckpt.replace("_iterations.pth", "_iterations.datastate.pkl")
+        dstate = os.path.splitext(ckpt)[0] + ".datastate.pkl"
         if os.path.isfile(dstate):
             with open(dstate, "rb") as f:
                 gen.load_state_dict(pickle.load(f))

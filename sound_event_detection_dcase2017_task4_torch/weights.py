@@ -20,6 +20,12 @@ fills the port's ``SedCnn`` of the same configuration:
 
 It raises on a key it does not consume, a key it needs but does not find,
 a shape that does not match, and any parameter or buffer it leaves unfilled.
+
+``load_jax_moments(model, tree)`` maps a tree with the layout of
+``params`` alone (optax Adam's ``mu`` or ``nu``) through the same plan and
+returns ``{parameter name: tensor}``; it raises as ``load_jax_variables``
+does. The GRU's ``bias_hh`` r/z slices come out zero, as their parameters
+do: the forward masks them, so their gradients and moments stay zero.
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ import torch
 
 from .models.zoo import SedCnn
 
-__all__ = ["load_jax_variables"]
+__all__ = ["load_jax_variables", "load_jax_moments"]
 
 Key = Tuple[str, ...]
 
@@ -116,28 +122,43 @@ def _plan(model: SedCnn) -> List[Tuple[str, List[Key], Callable]]:
     return plan
 
 
-def load_jax_variables(model: SedCnn, variables: dict) -> SedCnn:
-    """Fill ``model`` in place from a flax variables tree; returns it."""
-    flat = _flatten(variables)
-    state = model.state_dict()
-    new_state: Dict[str, torch.Tensor] = {}
-    for name, keys, combine in _plan(model):
+def _combine(plan, flat: Dict[Key, np.ndarray],
+             want: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each plan entry's tensor from ``flat`` (consumed), checked against
+    the shapes of ``want``; raises on a key left over or missing, a shape
+    that differs and a tensor of ``want`` left unfilled."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, keys, combine in plan:
         missing = [k for k in keys if k not in flat]
         if missing:
             raise KeyError(f"flax variables lack {['/'.join(k) for k in missing]}"
                            f" (needed for {name})")
         arr = np.asarray(combine(*[flat.pop(k) for k in keys]), np.float32)
-        if name not in state:
+        if name not in want:
             raise KeyError(f"model has no tensor {name!r}")
-        if tuple(arr.shape) != tuple(state[name].shape):
+        if tuple(arr.shape) != tuple(want[name].shape):
             raise ValueError(f"{name}: flax gives shape {arr.shape}, the "
-                             f"model wants {tuple(state[name].shape)}")
-        new_state[name] = torch.tensor(arr)
+                             f"model wants {tuple(want[name].shape)}")
+        out[name] = torch.tensor(arr)
     if flat:
         raise KeyError("flax variables not consumed: "
                        f"{sorted('/'.join(k) for k in flat)}")
-    unfilled = sorted(set(state) - set(new_state))
+    unfilled = sorted(set(want) - set(out))
     if unfilled:
         raise KeyError(f"model tensors left unfilled: {unfilled}")
+    return out
+
+
+def load_jax_variables(model: SedCnn, variables: dict) -> SedCnn:
+    """Fill ``model`` in place from a flax variables tree; returns it."""
+    new_state = _combine(_plan(model), _flatten(variables), model.state_dict())
     model.load_state_dict(new_state, strict=True)
     return model
+
+
+def load_jax_moments(model: SedCnn, tree: dict) -> Dict[str, torch.Tensor]:
+    """``{parameter name: float32 CPU tensor}`` of a tree laid out as the
+    flax ``params`` of ``model`` (an Adam moment), in the port's layout."""
+    plan = [(name, [k[1:] for k in keys], combine)
+            for name, keys, combine in _plan(model) if keys[0][0] == "params"]
+    return _combine(plan, _flatten(tree), dict(model.named_parameters()))

@@ -13,7 +13,8 @@ device="cpu")``:
 * a JAX ``.ckpt`` imported by the port, then the port's ``inference``, gives
   the JAX CLI's predictions within 1e-5, and so does the port's
   ``inference`` on a workspace that holds only the JAX run's ``.ckpt`` and
-  ``.optjson`` (adopted; a mismatched flag raises; a resume from it raises);
+  ``.optjson`` (adopted; a mismatched flag raises; a resume from it raises
+  when its ``opt_state`` layout disagrees with the ``.optjson``);
   ``Predictor.from_workspace`` serves that run as JAX's does (1e-5, events
   exact); on the JAX CLI's predictions pickle
   the port's ``calculate_metrics``, ``optimize_at_thresholds`` and
@@ -325,7 +326,10 @@ def test_from_workspace_serves_a_jax_run(cross):
 def test_a_jax_checkpoints_sidecar_is_adopted_and_resume_raises(cross, tmp_path):
     """The ``.ckpt``'s ``.optjson`` is ``<it>_iterations.optjson``: the
     port adopts its recipe with no flags passed and raises on a structural
-    mismatch; ``train --resume_iteration`` refuses a JAX checkpoint."""
+    mismatch; ``train --resume_iteration`` refuses a JAX checkpoint whose
+    ``opt_state`` layout (plain Adam here) disagrees with that recipe
+    (warmup and clipping). A resume that agrees is held by
+    ``tests/test_torch_resume.py``."""
     jax_ws, _, _, _ = cross
     ws = _fresh(jax_ws, str(tmp_path / "ws"))
     d = os.path.join(ws, "checkpoints", "main", _rc())
@@ -346,7 +350,7 @@ def test_a_jax_checkpoints_sidecar_is_adopted_and_resume_raises(cross, tmp_path)
     with pytest.raises(ValueError, match="optimizer config mismatch"):
         cpu(["inference", f"--workspace={ws}", *COMMON, "--warmup_steps=99",
              "--data_type=testing"])
-    with pytest.raises(ValueError, match="resuming from a JAX checkpoint"):
+    with pytest.raises(ValueError, match="optimizer layout mismatch"):
         cpu(["train", f"--workspace={ws}", *COMMON, "--resume_iteration=3",
              "--stop_iteration=4"])
     with pytest.raises(FileNotFoundError, match="iteration 2"):

@@ -6,7 +6,8 @@ step over an int16 bank (after checking that ``create_train_state`` with no
 device raises without a card), and run the CLI on the CPU (``features
 pack_synthetic`` with WAVs, ``calculate_feature_for_all_audio_files``
 through the native decoder, ``main train`` → ``inference`` →
-``calculate_metrics``, ``plot_results --table``) and run one of the port's
+``calculate_metrics``, ``plot_results --table``; ``main train
+--resume_iteration`` on a JAX package ``.ckpt``) and run one of the port's
 tools on the CPU (``tools.sed_search_bench``, with a CLI child of
 ``tools.run_cli``), then check ``sys.modules``; ``graft_entry``'s forward
 and a dry run on 2 spawned gloo ranks run with the forbidden packages
@@ -97,6 +98,49 @@ def test_the_cli_pipeline_loads_no_jax_h5py_sklearn_or_msgpack(tmp_path):
     assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
     assert "SED: segF1=" in proc.stdout
     assert "| Cnn_5layers_AvgPooling | 2 |" in proc.stdout
+
+
+def test_resuming_a_jax_checkpoint_loads_no_jax_or_msgpack(tmp_path):
+    """``main train --resume_iteration`` on a workspace whose checkpoint is
+    the JAX package's ``.ckpt`` (written here by the JAX package, with its
+    ``.optjson``): the port imports it with its own msgpack reader."""
+    from sound_event_detection_dcase2017_task4_torch import features
+    from sound_event_detection_dcase2017_task4_tpu import checkpoints as jckpt
+    from sound_event_detection_dcase2017_task4_tpu import config as jconfig
+    from sound_event_detection_dcase2017_task4_tpu import train as jtrain
+    from sound_event_detection_dcase2017_task4_tpu.models import get_model
+
+    ws = str(tmp_path / "ws")
+    features.main(["pack_synthetic", f"--workspace={ws}", "--num_train=8",
+                   "--num_test=4", "--num_eval=4", "--clip_seconds=0.5",
+                   "--metadata_only"], device="cpu")
+    jm = get_model("Cnn_5layers_AvgPooling")
+    state, _ = jtrain.create_train_state(jm, jconfig.Config(clip_samples=16000),
+                                         example_frames=51, seed=3)
+    rc = os.path.join("model_type=Cnn_5layers_AvgPooling", "loss_type=clip_bce",
+                      "augmentation=none", "batch_size=4")
+    jckpt.save_checkpoint(os.path.join(ws, "checkpoints", "main", rc),
+                          state.replace(step=2), 2,
+                          opt_config=jtrain.resolve_opt_config(jm))
+    code = (
+        "import sys\n"
+        "from sound_event_detection_dcase2017_task4_torch import main\n"
+        f"ws = {ws!r}\n"
+        "out = main.main(['train', f'--workspace={ws}',\n"
+        "                 '--model_type=Cnn_5layers_AvgPooling', '--batch_size=4',\n"
+        "                 '--feature_source=waveform', '--resume_iteration=2',\n"
+        "                 '--stop_iteration=3', '--eval_interval=100'],\n"
+        "                device='cpu')\n"
+        "assert out['iteration'] == 3, out\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "LOADED []"
+    assert os.path.isfile(os.path.join(ws, "checkpoints", "main", rc,
+                                       "3_iterations.pth"))
 
 
 def test_a_tool_loads_no_jax_h5py_sklearn_or_msgpack():

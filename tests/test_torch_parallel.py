@@ -25,7 +25,9 @@ tolerances (float32, sums taken in another order):
 * ``main train`` at 2 ranks against 1 process on ``tests/test_torch_cli.py``'s
   tiny workspace: after one step, the statistics and the checkpoint within
   the bounds above; checkpoints free of a ``module.`` prefix and written by
-  rank 0 alone; resumes bit-exact at 2 ranks and across sizes.
+  rank 0 alone; resumes bit-exact at 2 ranks and across sizes; a resume
+  of a JAX ``.ckpt`` at 2 ranks within the same bounds of its resume in
+  one process.
 """
 
 import os
@@ -43,10 +45,12 @@ from sound_event_detection_dcase2017_task4_torch.config import Config
 from sound_event_detection_dcase2017_task4_torch.data import hdf5
 from sound_event_detection_dcase2017_task4_torch.models import SedCnn, get_model
 from sound_event_detection_dcase2017_task4_torch.weights import load_jax_variables
+from sound_event_detection_dcase2017_task4_tpu import checkpoints as jckpt
 from sound_event_detection_dcase2017_task4_tpu import config as jconfig
 from sound_event_detection_dcase2017_task4_tpu import losses as jlosses
 from sound_event_detection_dcase2017_task4_tpu import train as jtrain
 from sound_event_detection_dcase2017_task4_tpu.models import SedCnn as JaxSedCnn
+from sound_event_detection_dcase2017_task4_tpu.models import get_model as jget_model
 from sound_event_detection_dcase2017_task4_tpu.parallel import (
     batch_sharding, make_mesh, make_mesh_for_batch, replicated_sharding)
 
@@ -276,8 +280,8 @@ def cli(tmp_path_factory):
     features.main([PACK[0], f"--workspace={port_ws}", *PACK[1:]], device="cpu")
     ws = {k: str(root / k) for k in ("ws1", "ws1_long", "ws1_resumed", "ws2",
                                      "ws2_long", "ws2_resumed", "ws2_in_one",
-                                     "ws_sit")}
-    for k in ("ws1", "ws1_long", "ws2", "ws2_long", "ws_sit"):
+                                     "ws_sit", "ws_jax1", "ws_jax2")}
+    for k in ("ws1", "ws1_long", "ws2", "ws2_long", "ws_sit", "ws_jax1", "ws_jax2"):
         _fresh(port_ws, ws[k])
     seen = {"idx": [], "loaded": None}
     make_train_step, load_checkpoint = train.make_train_step, checkpoints.load_checkpoint
@@ -303,14 +307,41 @@ def cli(tmp_path_factory):
         worker._train(ws["ws1_long"], "--device_cache=on", "--stop_iteration=4")
         straight_idx = list(seen["idx"][1:])
         shutil.copytree(ws["ws1_long"], ws["ws1_resumed"], symlinks=True)
+        for k in ("ws_jax1", "ws_jax2"):
+            _jax_checkpoint(ws[k], os.path.join(os.path.dirname(
+                _ckpt(ws["ws1_long"], 2)), "2_iterations.datastate.pkl"))
         ranks = worker.launch("cli", 2, ws)
         shutil.copytree(ws["ws2_long"], ws["ws2_in_one"], symlinks=True)
         seen["idx"].clear()
         in_one = worker._train(ws["ws2_in_one"], "--device_cache=on",
                                "--resume_iteration=2", "--stop_iteration=4")
+    jax_one = worker._train(ws["ws_jax1"], "--device_cache=on",
+                            "--resume_iteration=2", "--stop_iteration=3")
     return {"ws": ws, "one": one, "ranks": ranks, "in_one": in_one,
+            "jax_one": jax_one,
             "straight_idx": straight_idx, "resumed_idx": seen["idx"],
             "loaded": seen["loaded"]}
+
+
+def _jax_checkpoint(ws, datastate):
+    """The JAX package's checkpoint of ``Cnn_5layers_AvgPooling`` at
+    iteration 2 in ``ws`` (seeded init, Adam's first moments drawn from a
+    seed, both counts 2), its ``.optjson`` and the stream position
+    ``datastate``."""
+    jm = jget_model("Cnn_5layers_AvgPooling")
+    state, _ = jtrain.create_train_state(jm, jconfig.Config(clip_samples=16000),
+                                         example_frames=51, seed=5)
+    rng = np.random.default_rng(5)
+    adam, rest = state.opt_state
+    mu = jax.tree_util.tree_map(
+        lambda a: rng.normal(0, 1e-3, a.shape).astype(np.float32), adam.mu)
+    # ν ≥ 2μ² (+ a gradient of 1e-4 squared), as a run of Adam leaves them
+    nu = jax.tree_util.tree_map(lambda m: 2 * m * m + np.float32(1e-8), mu)
+    adam = adam._replace(count=np.int32(2), mu=mu, nu=nu)
+    state = state.replace(step=np.int32(2), opt_state=(adam, rest))
+    d = os.path.dirname(_ckpt(ws, 2))
+    jckpt.save_checkpoint(d, state, 2, opt_config=jtrain.resolve_opt_config(jm))
+    shutil.copy(datastate, os.path.join(d, "2_iterations.datastate.pkl"))
 
 
 def _close(a, b, path="statistics"):
@@ -344,6 +375,28 @@ def _exact_state(a: dict, b: dict):
     assert a["mixup_rng"] == b["mixup_rng"] and a["step"] == b["step"]
 
 
+def _one_step_close(got, want, prior=None):
+    """Two checkpoints one step apart from the same state: generators,
+    stream position and step exact, running statistics within rtol 1e-4 /
+    atol 1e-5, parameters within 1e-5 wherever the step's gradient is above
+    1e-4 of the leaf's largest: Adam's first moment less 0.9 of ``prior``
+    (the moments before the step, ``{index: tensor}``; zero when None),
+    over 0.1."""
+    _exact_state(got, want)
+    names = [n for n, _ in get_model("Cnn_5layers_AvgPooling").named_parameters()]
+    for k, v in want["model"].items():
+        if "running" in k:
+            np.testing.assert_allclose(got["model"][k].numpy(), v.numpy(),
+                                       rtol=1e-4, atol=1e-5, err_msg=k)
+            continue
+        i = names.index(k)
+        m = want["optimizer"]["state"][i]["exp_avg"]
+        g = (m - (0 if prior is None else 0.9 * prior[i])).abs() / 0.1
+        big = g > 1e-4 * g.max()
+        np.testing.assert_allclose(got["model"][k][big].numpy(),
+                                   v[big].numpy(), atol=1e-5, rtol=0, err_msg=k)
+
+
 def test_cli_two_ranks_train_as_one_process(cli):
     """One step (the float32 CLI run is compared where its own arithmetic
     is steady: two thread counts of one process differ by 2.5e-5 in the
@@ -363,18 +416,7 @@ def test_cli_two_ranks_train_as_one_process(cli):
     a, b = _stats(ws["ws2"]), _stats(ws["ws1"])
     assert [r["iteration"] for r in a] == [0, 0, 1, 1]
     _close(a, b)
-    got, want = _load(ws["ws2"], 1), _load(ws["ws1"], 1)
-    _exact_state(got, want)
-    names = [n for n, _ in get_model("Cnn_5layers_AvgPooling").named_parameters()]
-    for k, v in want["model"].items():
-        if "running" in k:
-            np.testing.assert_allclose(got["model"][k].numpy(), v.numpy(),
-                                       rtol=1e-4, atol=1e-5, err_msg=k)
-            continue
-        g = want["optimizer"]["state"][names.index(k)]["exp_avg"].abs() / 0.1
-        big = g > 1e-4 * g.max()
-        np.testing.assert_allclose(got["model"][k][big].numpy(),
-                                   v[big].numpy(), atol=1e-5, rtol=0, err_msg=k)
+    _one_step_close(_load(ws["ws2"], 1), _load(ws["ws1"], 1))
     for it in (0, 1):
         with open(_ckpt(ws["ws2"], it).replace(".pth", ".datastate.pkl"), "rb") as f:
             pos2 = pickle.load(f)
@@ -428,6 +470,33 @@ def test_cli_resumes_across_sizes(cli):
         assert r["resumed_from_one"]["iteration"] == 4
         assert np.isfinite(r["resumed_from_one"]["loss"])
     _exact_state(_load(ws["ws1_resumed"], 4), _load(ws["ws1_long"], 4))
+
+
+def test_cli_two_rank_resume_of_a_jax_checkpoint_equals_one_process(cli):
+    """Every rank imports the same JAX ``.ckpt`` (Adam moments drawn, counts
+    2) and takes one step; against the same resume in one process: the
+    loss within rtol 2e-5, the eval at 2 and the checkpoint at 3 within
+    the bounds of ``test_cli_two_ranks_train_as_one_process``; the Adam
+    counts carried on."""
+    ws, one = cli["ws"], cli["jax_one"]
+    assert one["iteration"] == 3
+    for r in cli["ranks"]:
+        got = r["resumed_jax"]
+        assert got["iteration"] == 3
+        np.testing.assert_allclose(got["loss"], one["loss"], rtol=2e-5)
+        assert [e["iteration"] for e in got["evals"]] == [2]
+    _close(_stats(ws["ws_jax2"]), _stats(ws["ws_jax1"]))
+    got, want = _load(ws["ws_jax2"], 3), _load(ws["ws_jax1"], 3)
+    before = train.create_train_state(get_model("Cnn_5layers_AvgPooling"),
+                                      device="cpu")
+    checkpoints.import_jax_train_state(
+        os.path.join(os.path.dirname(_ckpt(ws["ws_jax1"], 2)),
+                     "2_iterations.ckpt"), before)
+    prior = {i: s["exp_avg"] for i, s in
+             before.optimizer.state_dict()["state"].items()}
+    _one_step_close(got, want, prior)
+    assert got["step"] == 3
+    assert {float(s["step"]) for s in got["optimizer"]["state"].values()} == {3.0}
 
 
 def test_cli_checkpoint_serves_in_one_process(cli):

@@ -149,8 +149,9 @@ def cli_job(spec):
     2 and 4 (``ws2_long``), a resume of that run from iteration 2 in a copy
     (``ws2_resumed``) and a resume from iteration 2 of the 1-process run
     the test made (``ws1_resumed``), host-fed; last a run at batch 3, which
-    only a mesh of 1 divides (``ws_sit``: rank 1 sits it out). Every rank
-    returns what ``main.main`` returned."""
+    only a mesh of 1 divides (``ws_sit``: rank 1 sits it out); last a
+    resume of the JAX package's checkpoint at iteration 2 for one step
+    (``ws_jax2``). Every rank returns what ``main.main`` returned."""
     out = {"one_step": _train(spec["ws2"], "--device_cache=on",
                               "--stop_iteration=1", "--eval_interval=1"),
            "scratch": _train(spec["ws2_long"], "--device_cache=on",
@@ -165,6 +166,8 @@ def cli_job(spec):
                                      "--stop_iteration=4")
     out["sit_out"] = _train(spec["ws_sit"], "--batch_size=3",
                             "--stop_iteration=1", "--eval_interval=1")
+    out["resumed_jax"] = _train(spec["ws_jax2"], "--device_cache=on",
+                                "--resume_iteration=2", "--stop_iteration=3")
     return out
 
 
