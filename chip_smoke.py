@@ -551,6 +551,21 @@ def phase_gru(torch, card):
     print(f"[gru] bf16 vs f32 output: max |Δ| {err:.3e}")
 
 
+def _launches(entry):
+    """The kernel entry's launches since they were last zeroed (the port's
+    counter ``ops.<entry>.launches``)."""
+    from sound_event_detection_dcase2017_task4_torch import trace
+
+    return trace.counters().get(f"ops.{entry}.launches", 0)
+
+
+def _zero_launches():
+    """Zero the port's counters, the launch counters among them."""
+    from sound_event_detection_dcase2017_task4_torch import trace
+
+    trace.reset_counters()
+
+
 def _request(cfg, n, seed):
     rng = np.random.default_rng(seed)
     t = np.arange(cfg.clip_samples) / cfg.sample_rate
@@ -578,7 +593,6 @@ def _check_outputs(out, n, cfg):
 
 
 def phase_slice(torch, sedt, card):
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
 
     cfg = sedt.config.DEFAULT
     rng = np.random.default_rng(1)
@@ -598,9 +612,9 @@ def phase_slice(torch, sedt, card):
     # (the Predictor's frontend looks the plain version up as
     # ``stft.logmel`` at each call, so the guard's patch sees it)
     with _PlainGuard(torch, cfg) as guard:
-        logmel_cuda.LAUNCHES = 0
+        _zero_launches()
         out = pred(wave)
-        n_request = logmel_cuda.LAUNCHES
+        n_request = _launches("logmel")
         events = pred.detect_events(wave)
         long0 = pred.predict_long(rec)
         # decode band from the random model's own output range, so that the
@@ -619,7 +633,7 @@ def phase_slice(torch, sedt, card):
             pos += size
         streamed += det.flush()
         torch.cuda.synchronize()
-    launches = logmel_cuda.LAUNCHES
+    launches = _launches("logmel")
     # ----------------------------------------------------------------------
 
     _check_outputs(out, BATCH, cfg)
@@ -884,7 +898,7 @@ def phase_train(torch, sedt, card, bank, targets, scale):
     """The training slice at full width; returns the bank launches of its
     main-path run."""
     from sound_event_detection_dcase2017_task4_torch import train
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+    from sound_event_detection_dcase2017_task4_torch.ops import stft
 
     cfg = sedt.config.DEFAULT
     scalar = (np.full(cfg.mel_bins, -30.0, np.float32),
@@ -908,8 +922,7 @@ def phase_train(torch, sedt, card, bank, targets, scale):
     with _PlainGuard(torch, cfg) as guard:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        logmel_cuda.BANK_LAUNCHES = 0
-        logmel_cuda.LAUNCHES = 0
+        _zero_launches()
         marks = [torch.cuda.Event(enable_timing=True)
                  for _ in range(TRAIN_STEPS + 1)]
         metrics = []
@@ -919,7 +932,7 @@ def phase_train(torch, sedt, card, bank, targets, scale):
             marks[i + 1].record()
         out = evaluate(batches[0][:EVAL_BATCH])
         torch.cuda.synchronize()
-    launches, waveform_launches = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+    launches, waveform_launches = _launches("logmel_bank"), _launches("logmel")
     peak = torch.cuda.max_memory_allocated()
     # ----------------------------------------------------------------------
 
@@ -1144,7 +1157,6 @@ def phase_cli(torch, sedt, card, root):
         _quantize_int16, read_split)
     from sound_event_detection_dcase2017_task4_torch.data.synth import (
         make_synthetic_dataset)
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
 
     cfg = sedt.config.DEFAULT
     ws = os.path.join(root, "ws")
@@ -1155,14 +1167,14 @@ def phase_cli(torch, sedt, card, root):
         """Zero the kernel counters before ``stage`` and add them after."""
         class _Stage:
             def __enter__(self):
-                logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+                _zero_launches()
                 self.t0 = time.perf_counter()
                 return self
 
             def __exit__(self, *exc):
                 torch.cuda.synchronize()
                 walls[stage] = time.perf_counter() - self.t0
-                self.b2, self.b1 = logmel_cuda.LAUNCHES, logmel_cuda.BANK_LAUNCHES
+                self.b2, self.b1 = _launches("logmel"), _launches("logmel_bank")
                 launches["logmel"] += self.b2
                 launches["logmel_bank"] += self.b1
                 return False
@@ -1718,7 +1730,7 @@ def phase_jax_resume(torch, sedt, card, root, cli_ws):
     try:
         with _PlainGuard(torch, cfg) as guard:
             # ---- the main path: counters zeroed just before, read just after
-            logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+            _zero_launches()
             t0 = time.perf_counter()
             run = cli.main(["train", f"--workspace={ws}", *CLI_ARGS, "--dtype=bf16",
                             "--device_cache=on", f"--resume_iteration={RESUME_N}",
@@ -1726,17 +1738,17 @@ def phase_jax_resume(torch, sedt, card, root, cli_ws):
                             "--eval_interval=1000"])
             torch.cuda.synchronize()
             t_train = time.perf_counter() - t0
-            launches = {"logmel": logmel_cuda.LAUNCHES,
-                        "logmel_bank": logmel_cuda.BANK_LAUNCHES}
+            launches = {"logmel": _launches("logmel"),
+                        "logmel_bank": _launches("logmel_bank")}
             # ------------------------------------------------------------------
-            logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+            _zero_launches()
             t0 = time.perf_counter()
             cli.main(["inference", f"--workspace={ws}", *CLI_ARGS, "--dtype=bf16",
                       "--data_type=testing"])
             torch.cuda.synchronize()
             t_inf = time.perf_counter() - t0
-            inf_launches = {"logmel": logmel_cuda.LAUNCHES,
-                            "logmel_bank": logmel_cuda.BANK_LAUNCHES}
+            inf_launches = {"logmel": _launches("logmel"),
+                            "logmel_bank": _launches("logmel_bank")}
             # ------------------------------------------------------------------
             calls = dict(guard.calls)
     finally:
@@ -1925,7 +1937,7 @@ def _zoo_serve(torch, sedt, card, name, wave, scalar):
     waveform kernel launches of its main path. The GLU serves with
     BatchNorm statistics calibrated on the request (:func:`_calibrate`);
     either model's clipwise outputs must spread over the request's clips."""
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+    from sound_event_detection_dcase2017_task4_torch.ops import stft
 
     cfg = sedt.config.DEFAULT
     model = _zoo_model(torch, name, torch.float32, 0.0)
@@ -1946,14 +1958,14 @@ def _zoo_serve(torch, sedt, card, name, wave, scalar):
     with _PlainGuard(torch, cfg) as guard:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        _zero_launches()
         out = pred(wave)
         lat32 = _p50_latency(pred, wave)
         mem = torch.cuda.max_memory_allocated()
         out16 = pred16(wave)
         lat16 = _p50_latency(pred16, wave)
         torch.cuda.synchronize()
-        launches, bank_launches = logmel_cuda.LAUNCHES, logmel_cuda.BANK_LAUNCHES
+        launches, bank_launches = _launches("logmel"), _launches("logmel_bank")
     # ----------------------------------------------------------------------
     if launches != calls or bank_launches:
         raise AssertionError(f"{name} serving: {launches} waveform / "
@@ -1993,7 +2005,7 @@ def _zoo_train(torch, sedt, card, name, bank, targets, scale, scalar, remat,
     SpecAugment and mixup; returns the bank kernel launches, the p50 step
     time and the peak memory."""
     from sound_event_detection_dcase2017_task4_torch import train
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+    from sound_event_detection_dcase2017_task4_torch.ops import stft
 
     cfg = sedt.config.DEFAULT
     model = _zoo_model(torch, name, torch.bfloat16, remat=remat)
@@ -2009,7 +2021,7 @@ def _zoo_train(torch, sedt, card, name, bank, targets, scale, scalar, remat,
     with _PlainGuard(torch, cfg) as guard:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        _zero_launches()
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(ZOO_STEPS + 1)]
         metrics = []
         marks[0].record()
@@ -2017,7 +2029,7 @@ def _zoo_train(torch, sedt, card, name, bank, targets, scale, scalar, remat,
             metrics.append(step(batches[i], targets[batches[i]]))
             marks[i + 1].record()
         torch.cuda.synchronize()
-        launches, waveform = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+        launches, waveform = _launches("logmel_bank"), _launches("logmel")
         peak = torch.cuda.max_memory_allocated()
     # ----------------------------------------------------------------------
     losses = [float(m["loss"]) for m in metrics]
@@ -2081,7 +2093,6 @@ def _zoo_cli(torch, sedt, card, ws):
     ``--remat`` in phase 8's workspace, then ``inference``; returns the
     launches of both kernels."""
     from sound_event_detection_dcase2017_task4_torch import main as cli
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
 
     cfg = sedt.config.DEFAULT
     name = ZOO[1]
@@ -2093,7 +2104,7 @@ def _zoo_cli(torch, sedt, card, ws):
     per_eval = min(CLI_EVAL_MAX, -(-CLI_TRAIN // CLI_BATCH)) + min(
         CLI_EVAL_MAX, -(-CLI_TEST // CLI_BATCH))
     with _PlainGuard(torch, cfg) as guard:
-        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        _zero_launches()
         t0 = time.perf_counter()
         run = cli.main(["train", f"--workspace={ws}", *args, "--remat",
                         "--device_cache=on", f"--stop_iteration={ZOO_CLI_STEPS}",
@@ -2101,13 +2112,13 @@ def _zoo_cli(torch, sedt, card, ws):
                         f"--eval_max_iteration={CLI_EVAL_MAX}"])
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
-        train_b1, train_b2 = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
-        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        train_b1, train_b2 = _launches("logmel_bank"), _launches("logmel")
+        _zero_launches()
         t0 = time.perf_counter()
         cli.main(["inference", f"--workspace={ws}", *args, "--data_type=testing"])
         torch.cuda.synchronize()
         t_inf = time.perf_counter() - t0
-        inf_b1, inf_b2 = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+        inf_b1, inf_b2 = _launches("logmel_bank"), _launches("logmel")
     want_b1 = ZOO_CLI_STEPS + 2 * per_eval
     if (train_b1, train_b2, inf_b1, inf_b2) != (want_b1, 0, 0, 1):
         raise AssertionError(f"CLI launches: train {train_b1} bank / {train_b2} "
@@ -2244,7 +2255,7 @@ def phase_runme(torch, sedt, card, root, cli_ws):
                                                              native, plot_results)
     from sound_event_detection_dcase2017_task4_torch.data.hdf5 import (load_scalar,
                                                                        read_split)
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+    from sound_event_detection_dcase2017_task4_torch.ops import stft
 
     cfg = sedt.config.DEFAULT
     ws = os.path.join(root, "runme")
@@ -2259,14 +2270,14 @@ def phase_runme(torch, sedt, card, root, cli_ws):
     def counted(tag, argv):
         """Zero the waveform counter, run ``features.main(argv)`` on the
         card, read the counter; returns the wall time."""
-        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        _zero_launches()
         t0 = time.perf_counter()
         features.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[tag] = logmel_cuda.LAUNCHES
-        if logmel_cuda.BANK_LAUNCHES:
-            raise AssertionError(f"{tag}: {logmel_cuda.BANK_LAUNCHES} bank launches")
+        launches[tag] = _launches("logmel")
+        if _launches("logmel_bank"):
+            raise AssertionError(f"{tag}: {_launches('logmel_bank')} bank launches")
         return wall
 
     def stage1(split, out_ws, dataset_dir, decoder):
@@ -2496,7 +2507,7 @@ def phase_parallel(torch, sedt, card, bank, targets, scale, ws):
 
     from sound_event_detection_dcase2017_task4_torch import (checkpoints, main as cli,
                                                              parallel, train)
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+    from sound_event_detection_dcase2017_task4_torch.ops import stft
 
     cfg = sedt.config.DEFAULT
     scalar = (np.full(cfg.mel_bins, -30.0, np.float32),
@@ -2566,11 +2577,11 @@ def phase_parallel(torch, sedt, card, bank, targets, scale, ws):
                                                 scalar, scale, m)
             steps[tag](batches[0], targets[batches[0]])   # cuDNN's first-call setup
         with _PlainGuard(torch, cfg) as guard, _counted_all_reduces(dist) as calls:
-            logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+            _zero_launches()
             dp_metrics, dp_ms, dp_peak = _timed_steps(torch, steps["parallel"], batches,
                                                       targets)
-            launches["logmel_bank"], launches["logmel"] = (logmel_cuda.BANK_LAUNCHES,
-                                                           logmel_cuda.LAUNCHES)
+            launches["logmel_bank"], launches["logmel"] = (_launches("logmel_bank"),
+                                                           _launches("logmel"))
         if launches["logmel_bank"] != DP_STEPS or launches["logmel"]:
             raise AssertionError(f"data-parallel steps: {launches['logmel_bank']} bank / "
                                  f"{launches['logmel']} waveform launches")
@@ -2644,7 +2655,7 @@ def phase_parallel(torch, sedt, card, bank, targets, scale, ws):
         checkpoints.save_checkpoint = recording_save
         try:
             with _PlainGuard(torch, cfg) as guard:
-                logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+                _zero_launches()
                 t0 = time.perf_counter()
                 run = cli.main(["train", f"--workspace={ws}", *argv, "--dtype=bf16",
                                 "--device_cache=off", f"--stop_iteration={DP_STEPS}",
@@ -2652,7 +2663,7 @@ def phase_parallel(torch, sedt, card, bank, targets, scale, ws):
                                 f"--eval_max_iteration={CLI_EVAL_MAX}"])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                b2, b1 = logmel_cuda.LAUNCHES, logmel_cuda.BANK_LAUNCHES
+                b2, b1 = _launches("logmel"), _launches("logmel_bank")
         finally:
             checkpoints.save_checkpoint = save_checkpoint
         per_eval = min(CLI_EVAL_MAX, -(-CLI_TRAIN // CLI_BATCH)) + min(
@@ -2745,7 +2756,6 @@ def phase_tools(torch, sedt, card, root):
     from sound_event_detection_dcase2017_task4_torch import features
     from sound_event_detection_dcase2017_task4_torch.examples import (
         minimal_train, streaming_live)
-    from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda
     from sound_event_detection_dcase2017_task4_torch.tools import (
         coldstart_probe, hard_benchmark, mfu, parity_check, scale_soak,
         sed_search_bench)
@@ -2761,13 +2771,13 @@ def phase_tools(torch, sedt, card, root):
         plain frontend's calls in this process to ``plain`` (the CPU FLOP
         count of ``mfu`` and ``parity_check``'s comparison make them)."""
         with _PlainGuard(torch, cfg) as guard:
-            logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+            _zero_launches()
             t0 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
             walls[tag] = time.perf_counter() - t0
-            got = {"logmel": logmel_cuda.LAUNCHES,
-                   "logmel_bank": logmel_cuda.BANK_LAUNCHES}
+            got = {"logmel": _launches("logmel"),
+                   "logmel_bank": _launches("logmel_bank")}
         if guard.calls != {"logmel": plain, "logmel_bank": 0}:
             raise AssertionError(f"{tag}: plain frontend calls {guard.calls}, "
                                  f"expected {plain} of logmel")
@@ -2927,11 +2937,11 @@ def phase_entry(torch, card):
     cfg = Config(clip_samples=64000)
     # ---- the main path: counters zeroed just before, read just after ----
     with _PlainGuard(torch, cfg) as guard:
-        logmel_cuda.LAUNCHES = logmel_cuda.BANK_LAUNCHES = 0
+        _zero_launches()
         forward, args = graft_entry.entry()
         clip, frame = forward(*args)
         torch.cuda.synchronize()
-        launches = {"entry": logmel_cuda.LAUNCHES, "bank": logmel_cuda.BANK_LAUNCHES}
+        launches = {"entry": _launches("logmel"), "bank": _launches("logmel_bank")}
     # ----------------------------------------------------------------------
     if launches != {"entry": 1, "bank": 0} or any(guard.calls.values()):
         raise AssertionError(f"entry(): launches {launches}, plain {guard.calls}")

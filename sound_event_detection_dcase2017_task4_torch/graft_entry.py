@@ -30,10 +30,9 @@ import argparse
 import numpy as np
 import torch
 
-from . import parallel, resolve_device, train
+from . import parallel, resolve_device, trace, train
 from .config import Config
 from .models import get_model
-from .ops import logmel_cuda
 from .ops.stft import make_logmel_fn
 
 __all__ = ["FLAGSHIP", "entry", "dryrun_multichip", "main"]
@@ -128,8 +127,8 @@ def _dryrun_rank(n_devices: int, device: torch.device) -> dict:
     return {"rank": mesh.rank, "loss": loss, "loss_1": loss1,
             "grad_norm": gnorm, "grad_norm_1": gnorm1,
             "eval_shape": clip.shape,
-            "launches": {"logmel": logmel_cuda.LAUNCHES,
-                         "logmel_bank": logmel_cuda.BANK_LAUNCHES}}
+            "launches": {k: trace.counters().get(f"ops.{k}.launches", 0)
+                         for k in ("logmel", "logmel_bank")}}
 
 
 def dryrun_multichip(n_devices: int, device=None,

@@ -78,7 +78,7 @@ import numpy as np
 import torch
 
 from . import (autoth, checkpoints, parallel, resolve_device, scoring, sed,
-               train as train_lib)
+               trace, train as train_lib)
 from .config import DEFAULT, classes_num, labels
 from .data import (DataGenerator, holdout_indices, load_scalar,
                    prefetch_to_device, read_split, scale, subset_reader)
@@ -138,6 +138,16 @@ def _strong_labels(args, data_type: str):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _exchanged() -> tuple[int, int]:
+    """The collectives run so far in this process, and the bytes it put
+    into them (the ``parallel.*`` counters of the port's ``trace``)."""
+    got = trace.counters()
+    return (sum(v for k, v in got.items()
+                if k.startswith("parallel.") and k.endswith(".calls")),
+            sum(v for k, v in got.items()
+                if k.startswith("parallel.") and k.endswith(".bytes")))
 
 
 def _default_cache_cap(device: torch.device) -> int:
@@ -343,7 +353,9 @@ def do_train(args) -> dict:
     """Train; returns ``{"iteration", "loss", "evals"}``: the last
     iteration, the last step's loss and, for each eval point, its iteration
     with the train, eval and checkpoint wall times and the train clips/s
-    since the previous one.
+    since the previous one. On a mesh of 2 or more, each eval's log line
+    also gives the collectives and the MB this rank put into them per
+    train step since the previous eval.
 
     In a process group (``torchrun``) every process of the mesh returns the
     same; a process outside the mesh returns ``{"iteration": None, "loss":
@@ -412,6 +424,7 @@ def do_train(args) -> dict:
     evals = []
     metrics = None
     profiler = None
+    exchanged = _exchanged()
     t0 = time.time()
     batches = prefetch_to_device(
         _with_stream_state(gen, gen.generate_train(yield_indices=use_bank)),
@@ -420,6 +433,8 @@ def do_train(args) -> dict:
         if it % args.eval_interval == 0:
             _sync(dev)
             train_time = time.time() - t0
+            # the train steps' collectives since the last eval
+            calls, nbytes = (a - b for a, b in zip(_exchanged(), exchanged))
             for split, reader in (("train", None), ("test", ctx["test_reader"])):
                 if split == "test" and reader is None:
                     continue
@@ -483,9 +498,15 @@ def do_train(args) -> dict:
             evals.append({"iteration": it, "train_time": train_time,
                           "eval_time": eval_time, "checkpoint_time": ckpt_time,
                           "train_clips_per_s": cps})
+            exchange = ""
+            if parallel.mesh_size(mesh) > 1 and steps:
+                exchange = (f" exchange {calls / steps:.1f} collectives "
+                            f"{nbytes / steps / 1e6:.3f} MB a step")
             logger.info("iter %d train_time %.3f s eval_time %.3f s (of it "
-                        "checkpoint %.3f s)%s", it, train_time, eval_time,
-                        ckpt_time, "" if cps is None else f" ({cps:.1f} clips/s)")
+                        "checkpoint %.3f s)%s%s", it, train_time, eval_time,
+                        ckpt_time, "" if cps is None else f" ({cps:.1f} clips/s)",
+                        exchange)
+            exchanged = _exchanged()
             t0 = time.time()
 
         if it >= args.stop_iteration:
@@ -498,10 +519,11 @@ def do_train(args) -> dict:
             _sync(dev)
             profiler.stop()
             os.makedirs(args.profile_dir, exist_ok=True)
-            trace = os.path.join(args.profile_dir, f"trace_iter{it - 4}.json")
-            profiler.export_chrome_trace(trace)
+            trace_path = os.path.join(args.profile_dir,
+                                      f"trace_iter{it - 4}.json")
+            profiler.export_chrome_trace(trace_path)
             profiler = None
-            logger.info("profiler trace stopped (5 steps) → %s", trace)
+            logger.info("profiler trace stopped (5 steps) → %s", trace_path)
         if args.check_numerics:
             bad = int(metrics["nonfinite_count"])
             if bad > 0:
@@ -846,7 +868,7 @@ def main(argv=None, device=None):
     pt.add_argument("--eval_max_iteration", type=int, default=10)
     pt.add_argument("--profile_dir", default=None,
                     help="write a torch.profiler Chrome trace of 5 train "
-                         "steps here")
+                         "steps here (with the port's sedx.* spans)")
     pt.add_argument("--profile_start", type=int, default=10)
     pt.add_argument("--keep_checkpoints", type=int, default=0,
                     help="keep only the N highest-iteration checkpoints, "

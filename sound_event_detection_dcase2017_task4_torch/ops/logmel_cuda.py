@@ -16,6 +16,11 @@ frontends the port calls: a CPU tensor goes to the plain PyTorch version, a
 CUDA tensor to these wrappers, which raise if they cannot build or launch.
 Nothing here falls back.
 
+Each launch adds one to the counter ``ops.logmel.launches`` (waveform entry)
+or ``ops.logmel_bank.launches`` (bank entry) of the port's ``trace`` module,
+and runs inside the span ``sedx.ops.logmel`` or ``sedx.ops.logmel_bank``
+(the index copy, the launch and the ``top_db`` clamp).
+
 The kernel is built at first use with ``nvcc`` into ``ops/_build/`` (listed in
 ``.gitignore``) and bound with ``ctypes``; importing this module needs neither
 ``nvcc`` nor a GPU.
@@ -37,11 +42,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import trace
 from ..config import Config, DEFAULT
 from . import dsp
 from .stft import _geometry, check_bank, pad_center
 
-__all__ = ["BANK_LAUNCHES", "LAUNCHES", "Plan", "build", "check_window",
+__all__ = ["Plan", "build", "check_window",
            "flops_and_bytes", "logmel_cuda", "logmel_cuda_bank", "plan",
            "shared_bytes"]
 
@@ -61,12 +67,6 @@ _POW2_RADICES = (8, 4, 2)
 # Shared memory a block may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232448
 
-#: Launches of the waveform entry since import; :func:`logmel_cuda` adds
-#: one per launch, nowhere else.
-LAUNCHES = 0
-#: Launches of the bank entry since import; :func:`logmel_cuda_bank` adds
-#: one per launch, nowhere else.
-BANK_LAUNCHES = 0
 #: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of the
 #: build this process loaded, or ``None`` before the first build.
 BUILD_LOG: str | None = None
@@ -334,7 +334,6 @@ def logmel_cuda(waveform: torch.Tensor, cfg: Config = DEFAULT) -> torch.Tensor:
     float32 for both of the frontend's precisions. An odd window raises
     (:func:`check_window`).
     """
-    global LAUNCHES
     check_window(cfg)
     if not isinstance(waveform, torch.Tensor) or waveform.device.type != "cuda":
         raise ValueError("logmel_cuda takes a CUDA tensor")
@@ -355,18 +354,20 @@ def logmel_cuda(waveform: torch.Tensor, cfg: Config = DEFAULT) -> torch.Tensor:
         return waveform.new_empty((0, n_frames, cfg.mel_bins))
     plan_f, plan_i = _device_plan(cfg, waveform.device)
     lib = build()
-    xpad = pad_center(waveform, pad, cfg.pad_mode).contiguous()
-    out = torch.empty((bsz, n_frames, cfg.mel_bins), dtype=torch.float32,
-                      device=waveform.device)
-    with torch.cuda.device(waveform.device):
-        stream = torch.cuda.current_stream(waveform.device).cuda_stream
-        rc = lib.sedx_logmel_launch(
-            xpad.data_ptr(), plan_f.data_ptr(), plan_i.data_ptr(),
-            out.data_ptr(), bsz, xpad.shape[1], n_frames,
-            *_launch_sizes(plan(cfg), cfg), cfg.log_amin, _ref_db(cfg), stream)
-    _check_launch(lib, rc)
-    LAUNCHES += 1
-    return _top_db(out, cfg)
+    with trace.span("sedx.ops.logmel"):
+        xpad = pad_center(waveform, pad, cfg.pad_mode).contiguous()
+        out = torch.empty((bsz, n_frames, cfg.mel_bins), dtype=torch.float32,
+                          device=waveform.device)
+        with torch.cuda.device(waveform.device):
+            stream = torch.cuda.current_stream(waveform.device).cuda_stream
+            rc = lib.sedx_logmel_launch(
+                xpad.data_ptr(), plan_f.data_ptr(), plan_i.data_ptr(),
+                out.data_ptr(), bsz, xpad.shape[1], n_frames,
+                *_launch_sizes(plan(cfg), cfg), cfg.log_amin, _ref_db(cfg),
+                stream)
+        _check_launch(lib, rc)
+        trace.count("ops.logmel.launches")
+        return _top_db(out, cfg)
 
 
 def _host_index(idx, n_rows: int) -> np.ndarray:
@@ -403,7 +404,6 @@ def logmel_cuda_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
     window table, so an int16 launch equals the float launch on the decoded
     rows bit for bit. An odd window raises (:func:`check_window`).
     """
-    global BANK_LAUNCHES
     check_window(cfg)
     if not isinstance(bank, torch.Tensor) or bank.device.type != "cuda":
         raise ValueError("logmel_cuda_bank takes a CUDA bank")
@@ -421,23 +421,25 @@ def logmel_cuda_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
     scale = 1.0 if bank.dtype == torch.float32 else float(wave_scale)
     plan_f, plan_i = _device_plan(cfg, bank.device, scale)
     lib = build()
-    dev_index = None
-    if index is not None:
-        dev_index = torch.from_numpy(index).pin_memory().to(
-            bank.device, non_blocking=True)
-    out = torch.empty((bsz, n_frames, cfg.mel_bins), dtype=torch.float32,
-                      device=bank.device)
-    with torch.cuda.device(bank.device):
-        stream = torch.cuda.current_stream(bank.device).cuda_stream
-        rc = lib.sedx_logmel_bank_launch(
-            bank.data_ptr(), bank.element_size(),
-            None if dev_index is None else dev_index.data_ptr(),
-            plan_f.data_ptr(), plan_i.data_ptr(), out.data_ptr(), bsz,
-            bank.shape[1] * bank.shape[2], n_frames,
-            *_launch_sizes(plan(cfg), cfg), cfg.log_amin, _ref_db(cfg), stream)
-    _check_launch(lib, rc)
-    BANK_LAUNCHES += 1
-    return _top_db(out, cfg)
+    with trace.span("sedx.ops.logmel_bank"):
+        dev_index = None
+        if index is not None:
+            dev_index = torch.from_numpy(index).pin_memory().to(
+                bank.device, non_blocking=True)
+        out = torch.empty((bsz, n_frames, cfg.mel_bins), dtype=torch.float32,
+                          device=bank.device)
+        with torch.cuda.device(bank.device):
+            stream = torch.cuda.current_stream(bank.device).cuda_stream
+            rc = lib.sedx_logmel_bank_launch(
+                bank.data_ptr(), bank.element_size(),
+                None if dev_index is None else dev_index.data_ptr(),
+                plan_f.data_ptr(), plan_i.data_ptr(), out.data_ptr(), bsz,
+                bank.shape[1] * bank.shape[2], n_frames,
+                *_launch_sizes(plan(cfg), cfg), cfg.log_amin, _ref_db(cfg),
+                stream)
+        _check_launch(lib, rc)
+        trace.count("ops.logmel_bank.launches")
+        return _top_db(out, cfg)
 
 
 def flops_and_bytes(cfg: Config, batch: int, samples: int,

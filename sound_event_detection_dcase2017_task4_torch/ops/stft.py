@@ -18,7 +18,10 @@ flat is the centre-padded clip followed by a zero tail.
 :func:`make_logmel_fn` (``waveform → logmel``, 2-D or staged 3-D input) and
 :func:`make_logmel_bank_fn` (``(bank, idx) → logmel``) return the frontends
 the port calls: the hand-written kernel for a CUDA tensor, the plain version
-for a CPU tensor, chosen by the tensor's device only.
+for a CPU tensor, chosen by the tensor's device only. Each call of a plain
+version adds one to the counter ``ops.stft.logmel.calls`` or
+``ops.stft.logmel_bank.calls`` of the port's ``trace`` module (the bank's
+calls :func:`logmel` too), so that a run can show that nothing fell back.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import trace
 from ..config import Config, DEFAULT
 from . import dsp
 
@@ -94,6 +98,7 @@ def logmel(waveform: torch.Tensor, cfg: Config = DEFAULT) -> torch.Tensor:
     unless the caller has turned on TF32 (``torch.backends.cuda.matmul.
     allow_tf32``, off by default).
     """
+    trace.count("ops.stft.logmel.calls")
     cos_m, sin_m, mel_w = _constants(cfg, waveform.device)
     x = pad_center(waveform.to(torch.float32), cfg.window_size // 2,
                     cfg.pad_mode)
@@ -173,6 +178,7 @@ def logmel_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
     ``idx [B]`` → ``[B, frames, mel]``, as the JAX package's XLA bank
     frontend computes it: gather the rows, decode an integer bank as
     ``float32(q) · wave_scale``, un-stage, :func:`logmel`."""
+    trace.count("ops.stft.logmel_bank.calls")
     check_bank(bank, cfg, wave_scale)
     if isinstance(idx, np.ndarray):     # a view with negative strides too
         idx = np.ascontiguousarray(idx)

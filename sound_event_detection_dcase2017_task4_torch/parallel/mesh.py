@@ -29,6 +29,12 @@ Every function takes ``mesh=None`` for a process in no group, a mesh of one:
 it then returns its input (or nothing) and runs no collective, so one code
 path serves both.
 
+Where a collective runs, it runs inside the span ``sedx.parallel.<fn>`` of
+the port's ``trace`` module (with its packing: the copies, the flat
+concatenation, the divide), and adds to the counters
+``parallel.<fn>.calls`` (one a call; ``all_reduce_sum`` also one a
+backward) and ``parallel.<fn>.bytes`` (the bytes this rank puts in).
+
 :func:`launch` starts a job without ``torchrun``: ``n`` fresh interpreters,
 described to :func:`join` as ``torchrun`` describes its ranks, meeting over a
 ``FileStore`` in a temporary directory (no port to collide with), with a
@@ -53,7 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import resolve_device
+from .. import resolve_device, trace
 
 __all__ = ["Mesh", "is_initialized", "world_size", "join", "make_mesh",
            "make_mesh_for_batch", "mesh_size", "shard_batch",
@@ -162,18 +168,32 @@ def shard_batch(batch, mesh: Optional[Mesh], dim: int = 0):
     return batch[tuple(index)]
 
 
+def _counted(fn: str, nbytes: int) -> None:
+    trace.count(f"parallel.{fn}.calls")
+    trace.count(f"parallel.{fn}.bytes", nbytes)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
-        x = x.clone()
-        dist.all_reduce(x, group=group)
+        with trace.span("sedx.parallel.all_reduce_sum"):
+            x = x.clone()
+            dist.all_reduce(x, group=group)
+        _counted("all_reduce_sum", _nbytes(x))
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(grad, group=ctx.group)
+        # on autograd's thread, inside the caller's backward
+        with trace.span("sedx.parallel.all_reduce_sum"):
+            grad = grad.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(grad, group=ctx.group)
+        _counted("all_reduce_sum", _nbytes(grad))
         return grad, None
 
 
@@ -190,11 +210,13 @@ def average_(tensors, mesh: Optional[Mesh]) -> None:
     one collective over a flat copy of them all."""
     if mesh is None:
         return
-    flat = torch.cat([t.reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=mesh.group)
-    flat /= mesh.size
-    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
-        t.copy_(part.view_as(t))
+    with trace.span("sedx.parallel.average_"):
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        dist.all_reduce(flat, group=mesh.group)
+        flat /= mesh.size
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t))
+    _counted("average_", _nbytes(flat))
 
 
 def mirror(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
@@ -206,12 +228,14 @@ def mirror(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     peer = mesh.size - 1 - mesh.rank
     if peer == mesh.rank:
         return x
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    for req in dist.batch_isend_irecv(
-            [dist.P2POp(dist.isend, x, peer, mesh.group),
-             dist.P2POp(dist.irecv, out, peer, mesh.group)]):
-        req.wait()
+    with trace.span("sedx.parallel.mirror"):
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        for req in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x, peer, mesh.group),
+                 dist.P2POp(dist.irecv, out, peer, mesh.group)]):
+            req.wait()
+    _counted("mirror", _nbytes(x))
     return out
 
 
@@ -219,18 +243,23 @@ def gather_rows(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """Every rank's ``x`` (of one shape), concatenated in rank order."""
     if mesh is None:
         return x
-    parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x.contiguous(), group=mesh.group)
-    return torch.cat(parts)
+    with trace.span("sedx.parallel.gather_rows"):
+        parts = [torch.empty_like(x) for _ in range(mesh.size)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        out = torch.cat(parts)
+    _counted("gather_rows", _nbytes(x))
+    return out
 
 
 def replicate(module: torch.nn.Module, mesh: Optional[Mesh]) -> None:
     """Give every rank rank 0's parameters and buffers, in place."""
     if mesh is None:
         return
-    with torch.no_grad():
-        for t in (*module.parameters(), *module.buffers()):
+    tensors = (*module.parameters(), *module.buffers())
+    with trace.span("sedx.parallel.replicate"), torch.no_grad():
+        for t in tensors:
             dist.broadcast(t.detach(), src=0, group=mesh.group)
+    _counted("replicate", sum(_nbytes(t) for t in tensors))
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
@@ -239,9 +268,11 @@ def barrier(mesh: Optional[Mesh]) -> None:
     alone would return before it completes)."""
     if mesh is None:
         return
-    flag = torch.ones(1, device=mesh.device)
-    dist.all_reduce(flag, group=mesh.group)
-    flag.item()
+    with trace.span("sedx.parallel.barrier"):
+        flag = torch.ones(1, device=mesh.device)
+        dist.all_reduce(flag, group=mesh.group)
+        flag.item()
+    _counted("barrier", _nbytes(flag))
 
 
 def pad_rows(x: np.ndarray, multiple: int) -> np.ndarray:

@@ -8,11 +8,12 @@ it is given ``device="cpu"``; without a card it raises (``parity_check``
 also takes ``--device``, in place of the JAX tool's ``--platform``). Tools that run the CLI run each subcommand in a child process
 (:func:`run_cli`): ``python -c`` calls the module's ``main(argv,
 device=...)`` there, so the CLI keeps the JAX CLI's flag set. The child
-counts the calls of ``ops.stft``'s plain frontends and prints, as its last
-line, ``CHILD_TAG`` and a JSON object with the kernel launch counters of
-``ops.logmel_cuda`` (``logmel``: the waveform entry, ``logmel_bank``: the
-bank entry) and those plain-frontend calls (``plain``), so that the parent
-can count the work done in children and see that nothing fell back.
+prints, as its last line, ``CHILD_TAG`` and a JSON object with the kernel
+launch counters of ``ops.logmel_cuda`` (``logmel``: the waveform entry,
+``logmel_bank``: the bank entry), the calls of ``ops.stft``'s plain
+frontends (``plain``) and the whole counter registry of the port's
+``trace`` module they are read from (``counters``), so that the parent can
+count the work done in children and see that nothing fell back.
 """
 
 from __future__ import annotations
@@ -128,7 +129,8 @@ def run_cli(module: str, argv, device=None, echo: bool = True,
 def child_report(output: str) -> dict:
     """The counters a :func:`run_cli` child printed on its last line:
     ``{"logmel": n, "logmel_bank": n, "plain": {"logmel": n,
-    "logmel_bank": n}}``. Raises when the child printed none."""
+    "logmel_bank": n}, "counters": {name: n}}``. Raises when the child
+    printed none."""
     for line in reversed(output.splitlines()):
         if line.startswith(CHILD_TAG):
             return json.loads(line[len(CHILD_TAG):])
@@ -155,20 +157,9 @@ def _child(spec: str, t0: float) -> None:
     import importlib
     import traceback
 
-    from ..ops import logmel_cuda, stft
+    from .. import trace
 
     spec = json.loads(spec)
-    plain = {"logmel": 0, "logmel_bank": 0}
-
-    def counting(name, fn):
-        def wrapper(*a, **k):
-            plain[name] += 1
-            return fn(*a, **k)
-        return wrapper
-
-    # the frontends look both names up in stft's namespace at call time
-    for name in plain:
-        setattr(stft, name, counting(name, getattr(stft, name)))
     rc = 0
     try:
         importlib.import_module(spec["module"]).main(spec["argv"],
@@ -184,7 +175,11 @@ def _child(spec: str, t0: float) -> None:
         rc = 1
     sys.stdout.flush()
     sys.stderr.flush()
-    print(CHILD_TAG + json.dumps({"logmel": logmel_cuda.LAUNCHES,
-                                  "logmel_bank": logmel_cuda.BANK_LAUNCHES,
-                                  "plain": plain}), flush=True)
+    got = trace.counters()
+    print(CHILD_TAG + json.dumps({
+        "logmel": got.get("ops.logmel.launches", 0),
+        "logmel_bank": got.get("ops.logmel_bank.launches", 0),
+        "plain": {k: got.get(f"ops.stft.{k}.calls", 0)
+                  for k in ("logmel", "logmel_bank")},
+        "counters": got}), flush=True)
     sys.exit(rc)

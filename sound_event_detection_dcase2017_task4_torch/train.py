@@ -30,6 +30,13 @@ partner is the global batch reversed, and the gradients and the reported
 loss are averaged over the mesh in one collective after the backward.
 Without a mesh (``None``, a mesh of one) the same code runs no collective
 and draws what the global batch of one process needs.
+
+A train step runs in four spans of the port's ``trace`` module, recorded
+while a profiler is: ``sedx.train.frontend`` (host batch or index →
+normalised log-mel), ``sedx.train.forward`` (the copies of targets and λ,
+SpecAugment, mixup, the model, the loss), ``sedx.train.backward``
+(``zero_grad``, the backward, the gradient average) and
+``sedx.train.optimizer`` (grad norm, numerics, clip, Adam, schedule).
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import parallel, resolve_device
+from . import parallel, resolve_device, trace
 from .config import Config, DEFAULT
 from .losses import get_loss_func
 
@@ -290,57 +297,67 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
     params = list(model.parameters())
     parallel.replicate(model, mesh)
 
-    def step_fn(batch_x, batch_y, melled):
-        x = (_frontend_and_norm(batch_x, None, norm) if melled else
-             _frontend_and_norm(batch_x, frontend, norm, wave_scale))
-        y = _to_device(batch_y, device, torch.float32)
-        if use_spec_augment:
-            x = spec_augment(x, state.dropout_generator, mesh)
-        if mixup_alpha > 0.0:
-            lam = state.mixup_rng.beta(mixup_alpha, mixup_alpha, y.shape[0])
-            x, y = mixup(x, y, _to_device(lam, device, torch.float32), mesh)
-        else:
-            y = parallel.shard_batch(y, mesh)
-        out = model(x, train=True, generator=state.dropout_generator,
-                    mesh=mesh)
-        loss = loss_fn(out, y)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        loss = loss.detach()
-        # the global batch's mean: one collective
-        parallel.average_([*grads, loss], mesh)
-        metrics = {"loss": loss,
-                   "grad_norm": torch.nn.utils.get_total_norm(grads)}
-        if check_numerics:
-            metrics["nonfinite_count"] = (
-                sum((~torch.isfinite(g)).sum() for g in grads)
-                + (~torch.isfinite(loss)).sum())
-        if state.grad_clip:
-            # optax.clip_by_global_norm: g·c / max(‖g‖, c)
-            c = state.grad_clip
-            factor = c / torch.clamp(metrics["grad_norm"], min=c)
-            for g in grads:
-                g.mul_(factor)
-        state.optimizer.step()
-        if state.scheduler is not None:
-            state.scheduler.step()
+    def step_fn(logmel, batch_y):
+        # ``logmel()``: the step's input → its normalised log-mel
+        with trace.span("sedx.train.frontend"):
+            x = logmel()
+        with trace.span("sedx.train.forward"):
+            y = _to_device(batch_y, device, torch.float32)
+            if use_spec_augment:
+                x = spec_augment(x, state.dropout_generator, mesh)
+            if mixup_alpha > 0.0:
+                lam = state.mixup_rng.beta(mixup_alpha, mixup_alpha,
+                                           y.shape[0])
+                x, y = mixup(x, y, _to_device(lam, device, torch.float32),
+                             mesh)
+            else:
+                y = parallel.shard_batch(y, mesh)
+            out = model(x, train=True, generator=state.dropout_generator,
+                        mesh=mesh)
+            loss = loss_fn(out, y)
+        with trace.span("sedx.train.backward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            grads = [p.grad for p in params if p.grad is not None]
+            loss = loss.detach()
+            # the global batch's mean: one collective
+            parallel.average_([*grads, loss], mesh)
+        with trace.span("sedx.train.optimizer"):
+            metrics = {"loss": loss,
+                       "grad_norm": torch.nn.utils.get_total_norm(grads)}
+            if check_numerics:
+                metrics["nonfinite_count"] = (
+                    sum((~torch.isfinite(g)).sum() for g in grads)
+                    + (~torch.isfinite(loss)).sum())
+            if state.grad_clip:
+                # optax.clip_by_global_norm: g·c / max(‖g‖, c)
+                c = state.grad_clip
+                factor = c / torch.clamp(metrics["grad_norm"], min=c)
+                for g in grads:
+                    g.mul_(factor)
+            state.optimizer.step()
+            if state.scheduler is not None:
+                state.scheduler.step()
         state.step += 1
         return metrics
 
     if bank is None:
         return lambda batch_x, batch_y: step_fn(
-            _to_device(batch_x, device), batch_y, melled=False)
+            lambda: _frontend_and_norm(_to_device(batch_x, device), frontend,
+                                       norm, wave_scale), batch_y)
 
     def rows(batch_idx):            # this rank's rows of the global index
         return parallel.shard_batch(batch_idx, mesh)
 
     if bank_frontend is not None:
         return lambda batch_idx, batch_y: step_fn(
-            bank_frontend(bank, rows(batch_idx)), batch_y, melled=True)
+            lambda: _frontend_and_norm(bank_frontend(bank, rows(batch_idx)),
+                                       None, norm), batch_y)
     return lambda batch_idx, batch_y: step_fn(
-        bank.index_select(0, _to_device(rows(batch_idx), device, torch.long)),
-        batch_y, melled=False)
+        lambda: _frontend_and_norm(
+            bank.index_select(0, _to_device(rows(batch_idx), device,
+                                            torch.long)),
+            frontend, norm, wave_scale), batch_y)
 
 
 def make_eval_step(model, frontend: Optional[Callable] = None,

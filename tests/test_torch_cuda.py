@@ -22,12 +22,18 @@ import pytest
 import torch
 
 from sound_event_detection_dcase2017_task4_torch import (config, features,
-                                                         main, serving, train)
+                                                         main, serving, trace,
+                                                         train)
 from sound_event_detection_dcase2017_task4_torch.data import hdf5
 from sound_event_detection_dcase2017_task4_torch.models import SedCnn
 from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(entry: str) -> int:
+    """The kernel entry's launches so far (``ops.<entry>.launches``)."""
+    return trace.counters().get(f"ops.{entry}.launches", 0)
 
 
 @pytest.fixture
@@ -56,11 +62,11 @@ def test_kernel_matches_plain(cuda, kw, onset):
     if onset:
         x[:, : cfg.clip_samples // 2] = 0.0
     x = torch.from_numpy(x.astype(np.float32)).to(cuda)
-    before = logmel_cuda.LAUNCHES
+    before = _launches("logmel")
     got = stft.make_logmel_fn(cfg)(x)
     want = stft.logmel(x, cfg)
     torch.cuda.synchronize()
-    assert logmel_cuda.LAUNCHES == before + 1
+    assert _launches("logmel") == before + 1
     assert got.shape == want.shape == (3, cfg.frames_num, cfg.mel_bins)
     torch.testing.assert_close(got, want, atol=0.1, rtol=0)
     lin_g, lin_w = 10.0 ** (got.double() / 10), 10.0 ** (want.double() / 10)
@@ -86,9 +92,9 @@ def test_predictor_serves_through_the_kernel(cuda):
     model = SedCnn(channels=(8, 16), seq="gru", gru_hidden=16)
     pred = serving.Predictor(model, cfg)                     # device → cuda
     wave = (np.random.RandomState(1).randn(2, 16000) * 0.1).astype(np.float32)
-    before = logmel_cuda.LAUNCHES
+    before = _launches("logmel")
     out = pred(wave)
-    assert logmel_cuda.LAUNCHES == before + 1
+    assert _launches("logmel") == before + 1
     cpu = serving.Predictor(SedCnn(channels=(8, 16), seq="gru", gru_hidden=16),
                             cfg, device="cpu")(wave)
     for k in ("clipwise_output", "framewise_output"):
@@ -112,9 +118,9 @@ def test_bank_kernel_is_bit_equal_and_matches_plain(cuda, kw):
     q, staged = _bank(cfg)
     idx = np.array([4, 0, 2, 2])                        # a duplicate row
     bank = torch.from_numpy(staged).to(cuda)
-    before = logmel_cuda.BANK_LAUNCHES
+    before = _launches("logmel_bank")
     got = stft.make_logmel_bank_fn(cfg, wave_scale=scale)(bank, idx)
-    assert logmel_cuda.BANK_LAUNCHES == before + 1
+    assert _launches("logmel_bank") == before + 1
     dec = torch.from_numpy(q[idx].astype(np.float32) * np.float32(scale))
     assert torch.equal(got, logmel_cuda.logmel_cuda(dec.to(cuda), cfg))
     fbank = torch.from_numpy(staged.astype(np.float32) * np.float32(scale))
@@ -215,19 +221,19 @@ def test_cli_trains_through_the_kernels(cuda, tmp_path, mode):
     launches the bank kernel once per step and eval step, host-fed int16
     batches the waveform kernel."""
     ws = str(tmp_path / "ws")
-    before = logmel_cuda.LAUNCHES
+    before = _launches("logmel")
     features.main(["pack_synthetic", f"--workspace={ws}", "--num_train=8",
                    "--num_test=4", "--num_eval=4", "--clip_seconds=0.5",
                    "--metadata_only"])                    # device → cuda
-    assert logmel_cuda.LAUNCHES == before + 3             # one batch a split
-    b1, b2 = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+    assert _launches("logmel") == before + 3             # one batch a split
+    b1, b2 = _launches("logmel_bank"), _launches("logmel")
     run = main.main(["train", f"--workspace={ws}", "--batch_size=4",
                      "--model_type=Cnn_5layers_AvgPooling",
                      "--feature_source=waveform", "--augmentation=mixup",
                      f"--device_cache={mode}", "--stop_iteration=4",
                      "--eval_interval=4", "--eval_max_iteration=1"])
     torch.cuda.synchronize()
-    launches = (logmel_cuda.BANK_LAUNCHES - b1, logmel_cuda.LAUNCHES - b2)
+    launches = (_launches("logmel_bank") - b1, _launches("logmel") - b2)
     assert launches == ((8, 0) if mode == "on" else (0, 8))
     assert run["iteration"] == 4 and np.isfinite(run["loss"])
 
@@ -241,14 +247,14 @@ def test_wav_packing_on_the_card_matches_the_cpu(cuda, tmp_path):
                    "--num_test=2", "--num_eval=2", "--clip_seconds=0.5"])
     packed = {}
     for dev in ("cuda", "cpu"):
-        before = logmel_cuda.LAUNCHES
+        before = _launches("logmel")
         features.main(["calculate_feature_for_all_audio_files",
                        f"--dataset_dir={ws}/synth_dataset",
                        f"--workspace={tmp_path / dev}", "--data_type=training",
                        "--batch_size=4", "--clip_seconds=0.5"],
                       device=None if dev == "cuda" else "cpu")
         torch.cuda.synchronize()
-        assert logmel_cuda.LAUNCHES - before == (2 if dev == "cuda" else 0)
+        assert _launches("logmel") - before == (2 if dev == "cuda" else 0)
         packed[dev] = hdf5.read_split(str(tmp_path / dev / "features" / "training.h5"),
                                       load_waveform=True)
     gpu, cpu = packed["cuda"], packed["cpu"]
@@ -330,9 +336,9 @@ def test_minimal_train_example_runs_through_the_waveform_kernel(cuda, monkeypatc
         monkeypatch.setattr(stft, name,
                             lambda *a, _fn=fn, _n=name, **k: (plain.append(_n),
                                                               _fn(*a, **k))[1])
-    b1, b2 = logmel_cuda.BANK_LAUNCHES, logmel_cuda.LAUNCHES
+    b1, b2 = _launches("logmel_bank"), _launches("logmel")
     events = minimal_train.main(steps=3)
     torch.cuda.synchronize()
-    assert (logmel_cuda.BANK_LAUNCHES - b1, logmel_cuda.LAUNCHES - b2) == (0, 4)
+    assert (_launches("logmel_bank") - b1, _launches("logmel") - b2) == (0, 4)
     assert plain == []
     assert len(events) == 4 and all(isinstance(e, list) for e in events)

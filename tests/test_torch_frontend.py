@@ -21,12 +21,17 @@ from sound_event_detection_dcase2017_task4_tpu import config as jconfig
 from sound_event_detection_dcase2017_task4_tpu.ops import pallas_logmel as jpl
 from sound_event_detection_dcase2017_task4_tpu.ops import stft as jstft
 from sound_event_detection_dcase2017_task4_tpu.ops.pallas_logmel import logmel_pallas
-from sound_event_detection_dcase2017_task4_torch import config
+from sound_event_detection_dcase2017_task4_torch import config, trace
 from sound_event_detection_dcase2017_task4_torch.ops import dsp, logmel_cuda, stft
 
 torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _launches(entry: str) -> int:
+    """The kernel entry's launches so far (``ops.<entry>.launches``)."""
+    return trace.counters().get(f"ops.{entry}.launches", 0)
 
 
 def _assert_db_close(out, ref):
@@ -262,12 +267,12 @@ def test_frontend_takes_plain_version_on_cpu(wave):
     """A CPU tensor goes to the plain version, chosen by its device alone;
     no kernel launch is counted."""
     cfg = config.Config(clip_samples=32000)
-    before = logmel_cuda.LAUNCHES
+    before = _launches("logmel")
     x = torch.from_numpy(wave)
     for precision in ("highest", "fast"):
         got = stft.make_logmel_fn(cfg, precision=precision)(x)
         torch.testing.assert_close(got, stft.logmel(x, cfg), rtol=0, atol=0)
-    assert logmel_cuda.LAUNCHES == before
+    assert _launches("logmel") == before
     with pytest.raises(ValueError):
         stft.make_logmel_fn(cfg, precision="bf16")
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -327,10 +332,10 @@ def test_bank_frontend_matches_jax(kind):
     src = q if kind == "int16" else q.astype(np.float32) * np.float32(scale)
     ws = scale if kind == "int16" else None
     bank = stft.prepare_chunks(src, cfg)
-    before = logmel_cuda.BANK_LAUNCHES
+    before = _launches("logmel_bank")
     got = stft.make_logmel_bank_fn(cfg, wave_scale=ws)(
         torch.from_numpy(bank), idx).numpy()
-    assert logmel_cuda.BANK_LAUNCHES == before
+    assert _launches("logmel_bank") == before
     assert got.shape == (3, cfg.frames_num, cfg.mel_bins)
     np.testing.assert_array_equal(got[0], got[2])
     jbank = jnp.asarray(bank)
@@ -425,7 +430,9 @@ def test_importing_the_kernel_module_needs_no_nvcc_or_gpu(tmp_path):
         "assert logmel_cuda._lib is None and logmel_cuda.BUILD_LOG is None\n"
         "from sound_event_detection_dcase2017_task4_torch.ops.stft import make_logmel_fn\n"
         "y = make_logmel_fn(Config(clip_samples=16000))(torch.zeros(1, 16000))\n"
-        "assert y.shape == (1, 51, 64) and logmel_cuda.LAUNCHES == 0\n"
+        "from sound_event_detection_dcase2017_task4_torch import trace\n"
+        "assert y.shape == (1, 51, 64)\n"
+        "assert trace.counters().get('ops.logmel.launches', 0) == 0\n"
         "print('ok')\n")
     env = dict(os.environ, PATH=str(tmp_path), CUDA_VISIBLE_DEVICES="",
                CUDA_HOME=str(tmp_path), PYTHONPATH=REPO)

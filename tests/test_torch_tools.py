@@ -167,7 +167,7 @@ def test_run_cli_reports_the_childs_counters():
     assert out.splitlines()[-1].startswith(tools.CHILD_TAG)
     assert tools.child_report(out) == {
         "logmel": 0, "logmel_bank": 0,
-        "plain": {"logmel": 0, "logmel_bank": 0}}
+        "plain": {"logmel": 0, "logmel_bank": 0}, "counters": {}}
     rc, out = tools.run_cli("tools.sed_search_bench", ["--clips", "x"],
                             "cpu", echo=False)
     assert rc == 2 and "invalid int value" in out
@@ -195,7 +195,8 @@ def test_coldstart_probe_plain_cell_in_a_child():
     assert rec["cell"] == "warm_plain" and rec["device"] == "cpu"
     assert rec["kernel_build_s"] is None
     assert rec["launches"] == {"logmel": 0, "logmel_bank": 0,
-                               "plain": {"logmel": 2, "logmel_bank": 0}}
+                               "plain": {"logmel": 2, "logmel_bank": 0},
+                               "counters": {"ops.stft.logmel.calls": 2}}
     assert 0 < rec["import_s"] < rec["process_wall_s"]
     with pytest.raises(ValueError, match="needs the card"):
         coldstart_probe.run_cell("cold_kernel", "cpu", batch=1)

@@ -171,4 +171,45 @@ def cli_job(spec):
     return out
 
 
-JOBS = {"step": step_job, "cli": cli_job}
+def trace_job(spec):
+    """One float32 step with dropout and mixup (so ``mirror`` runs) under the
+    CPU profiler after a first step: the ``parallel.*`` counters that step
+    added, the model's BatchNorm widths and parameter count, this rank's
+    rows, and the ``sedx.`` spans the profiler recorded, as ``(name, start
+    µs, end µs)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sound_event_detection_dcase2017_task4_torch import trace
+    from sound_event_detection_dcase2017_task4_torch.models.blocks import BatchNorm
+
+    mesh = parallel.make_mesh("cpu")
+    model = SedCnn(dropout=0.2, generator=torch.Generator().manual_seed(0),
+                   **SMALL)
+    state = train.create_train_state(model, device="cpu", seed=1)
+    step = train.make_train_step(model, state, mixup_alpha=1.0, mesh=mesh)
+    x, y = parallel.shard_batch(torch.from_numpy(spec["x"]), mesh), spec["y"]
+    step(x, y)
+    before = trace.counters()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        step(x, y)
+    after = trace.counters()
+    return {"counted": {k: v - before.get(k, 0) for k, v in after.items()
+                        if k.startswith("parallel.") and v != before.get(k, 0)},
+            "bn_channels": [m.weight.numel() for m in model.modules()
+                            if isinstance(m, BatchNorm)],
+            "parameters": sum(p.numel() for p in model.parameters()),
+            "all_have_grads": all(p.grad is not None for p in model.parameters()),
+            "rows_bytes": x.numel() * x.element_size(),
+            "spans": [(e.name, e.time_range.start, e.time_range.end)
+                      for e in prof.events() if e.name.startswith("sedx.")]}
+
+
+def exchange_log_job(spec):
+    """``main train`` in the group for 2 steps with evals at 0 and 2; the
+    eval at 2 logs the steps' collectives and MB a step."""
+    return _train(spec["ws"], "--device_cache=off", "--stop_iteration=2",
+                  "--eval_interval=2")
+
+
+JOBS = {"step": step_job, "cli": cli_job, "trace": trace_job,
+        "exchange_log": exchange_log_job}
