@@ -173,12 +173,32 @@ random weights, in phases that each raise on failure:
    dropout 0, mixup λ from the key-seeded generator, 4 clips) is held card
    against CPU at the train-step tolerances. It prints the import's
    seconds and each resumed step's time.
+15. (run after phase 4) the train-mode BatchNorm kernels (``ops.bn_act``,
+   ``csrc/bn_act.cu``): their build and registers; at every conv-stack
+   block's shape of the crnn and the glu (batch 128, planes 1001×64,
+   500×32, 250×16, 125×8) and each epilogue, bf16, the kernels against the
+   plain versions with the ``a``, ``b`` and sums' gradient a step gives
+   (``bn_act.sums_grad``): ``y``, the forward and backward sums, and
+   ``dx`` region by region (``bn_act.grad_x_mismatch``: where ``g`` may
+   be non-zero, where ReLU's mask zeroes it, the rows and columns the
+   pool drops); then at block 1's shape ``[128, 64, 1001, 64]`` each
+   kernel's time alone (CUDA events over back-to-back calls, the
+   profiler's time of the kernels named ``sedx_bn_`` beside it; K1 the
+   sums, K2 the apply, K3 the backward's sums, K4 ``dx``), their sum
+   against the function's least bytes at 3.35 TB/s, and the stock
+   composite's forward and backward beside the fused path's through
+   ``BatchNorm``; last the host µs a call of each wrapper and of a
+   ``BatchNorm`` call on each path at ``[8, 64, 16, 16]``. It prints the
+   ``bn_act`` JSON line.
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
 ``launches_cli`` of phase 8, ``launches_zoo`` of phase 9, ``launches_runme``
 of phase 10, ``launches_parallel`` of phase 11, ``launches_tools`` of phase
-12, ``launches_entry`` of phase 13, ``launches_resume`` of phase 14), then
-as its last line
+12, ``launches_entry`` of phase 13, ``launches_resume`` of phase 14; and a
+``bn_act`` entry with the ``ops.bn_act`` counters of each phase after 15,
+its tools' children included, which fails the run if a train-mode
+``BatchNorm`` call on the card took the composite or a training phase ran
+no kernel), then as its last line
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
 when no CUDA device is available or any phase fails. It imports nothing of
 the JAX package.
@@ -191,6 +211,7 @@ import copy
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -551,6 +572,181 @@ def phase_gru(torch, card):
     print(f"[gru] bf16 vs f32 output: max |Δ| {err:.3e}")
 
 
+BN_BLOCKS = [(128, 64, 1001, 64), (128, 128, 500, 32), (128, 256, 250, 16),
+             (128, 512, 125, 8)]      # the crnn's and the glu's conv outputs
+
+
+def _bn_case(torch, shape, act, dev, seed):
+    """``x``, ``dy`` (bf16) and the ``a``, ``b``, ``gs`` a step gives them
+    (``bn_act.sums_grad``: batch statistics, the sums' gradient)."""
+    from sound_event_detection_dcase2017_task4_torch.ops import bn_act
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, c, t, f = shape
+    x = (torch.randn(shape, generator=g, device=dev)
+         * (0.5 + torch.rand(1, c, 1, 1, generator=g, device=dev))
+         + 0.3 * torch.randn(1, c, 1, 1, generator=g, device=dev)).to(torch.bfloat16)
+    weight = 0.5 + torch.rand(c, generator=g, device=dev)
+    bias = 0.2 * torch.randn(c, generator=g, device=dev)
+    oshape = (b, c, t // 2, f // 2) if act == "relu_pool" else shape
+    dy = torch.randn(oshape, generator=g, device=dev).to(torch.bfloat16)
+    return (x, dy) + bn_act.sums_grad(x, dy, weight, bias, act)
+
+
+def _host_us(torch, fn, n=2000):
+    """Host µs a call of ``fn``: ``n`` calls back to back, timed until the
+    last returns (small shapes, so that the device keeps up)."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / n * 1e6
+
+
+def phase_bn_act(torch, card):
+    """Phase 15 (see the module docstring): returns the ``bn_act`` line."""
+    from sound_event_detection_dcase2017_task4_torch.models.blocks import BatchNorm
+    from sound_event_detection_dcase2017_task4_torch.ops import bn_act
+
+    t0 = time.perf_counter()
+    bn_act.build()
+    log = bn_act.BUILD_LOG or ""
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(n) > 0 for n in re.findall(r"(\d+) bytes spill stores", log))
+    print(f"[bn_act] ops/csrc/bn_act.cu for sm_90a in {time.perf_counter() - t0:.2f} s; "
+          f"{len(regs)} kernels, registers {min(regs, default=0)}-{max(regs, default=0)}, "
+          f"{spills} with spills")
+    dev = torch.device("cuda")
+    out = {"dtype": "bfloat16", "card": card, "checks": {}}
+
+    # the kernels against the plain versions at every block's shape, with a
+    # step's gradient of the sums: y and the sums as a whole, dx region by
+    # region (where g is 0 at c1 + c2·x's own scale), away from ReLU's kink
+    for shape in BN_BLOCKS:
+        for act in bn_act.ACTS:
+            x, dy, a, b, gs = _bn_case(torch, shape, act, dev, 0)
+            y1, y0 = bn_act.apply_cuda(x, a, b, act), bn_act.apply_plain(x, a, b, act)
+            keep = ((bn_act._z(x, a, b).abs() > 1e-3) | (act == "none")
+                    if act != "relu_pool" else torch.ones_like(y1, dtype=torch.bool))
+            y_err = float(((y1.float() - y0.float()).abs()
+                           / (y0.float().abs() + 1e-3))[keep].max())
+            del y1, y0, keep
+            # the sums within a share of each channel's sum of magnitudes
+            g = bn_act._grad_z(dy, x, a, b, act)
+            mag = torch.cat([g.abs().sum((0, 2, 3)), (g * x).abs().sum((0, 2, 3))])
+            del g
+            s0 = bn_act.stats_plain(x)
+            g0 = bn_act.grad_stats_plain(dy, x, a, b, act)
+            sums_err = max(
+                float(((bn_act.stats_cuda(x) - s0).abs()
+                       / bn_act.stats_plain(x.abs()).clamp(min=1)).max()),
+                float(((bn_act.grad_stats_cuda(dy, x, a, b, act) - g0).abs()
+                       / mag.clamp(min=1e-30)).max()))
+            regions = bn_act.grad_x_mismatch(bn_act.grad_x_cuda(dy, x, a, b, gs, act),
+                                             dy, x, a, b, gs, act, 2 ** -7)
+            want = {"g"} | ({"masked"} if act != "none" else set()) | (
+                {"dropped"} if act == "relu_pool" and shape[2] % 2 else set())
+            tag = f"{shape[2]}x{shape[3]}x{shape[1]}-{act}"
+            out["checks"][tag] = {"y": y_err, "sums": sums_err, "dx": regions}
+            if (y_err > 2 ** -7 or sums_err > 1e-5
+                    or {k for k, (_, n) in regions.items() if n} != want
+                    or any(w > 1 for w, _ in regions.values())):
+                raise AssertionError(f"bn_act {tag} disagrees with its plain version: "
+                                     f"{out['checks'][tag]}")
+            print(f"[bn_act] {tag} bf16 batch 128 against plain: y {y_err:.2e}, sums "
+                  f"{sums_err:.2e}, dx by region (worst / limit, elements) "
+                  + ", ".join(f"{k} {w:.3f} ({n})" for k, (w, n) in regions.items()))
+            del x, dy, s0, g0, mag
+
+    # each kernel alone at block 1's shape, and the layer through BatchNorm
+    shape = BN_BLOCKS[0]
+    c = shape[1]
+    out["shape"] = list(shape)
+    for act in bn_act.ACTS:
+        x, dy, a, b, gs = _bn_case(torch, shape, act, dev, 1)
+        calls = {"K1": lambda: bn_act.stats_cuda(x),
+                 "K2": lambda: bn_act.apply_cuda(x, a, b, act),
+                 "K3": lambda: bn_act.grad_stats_cuda(dy, x, a, b, act),
+                 "K4": lambda: bn_act.grad_x_cuda(dy, x, a, b, gs, act)}
+        # CUDA events around back-to-back calls; the profiler's time of the
+        # kernels beside them, for reference only: late in this long process
+        # it has dropped kernels (a K4 read at 3.9 TB/s, over the HBM peak)
+        kernels = {k: _cuda_ms(torch, fn) for k, fn in calls.items()}
+        profiled = {k: _profiled_kernel_ms(torch, fn, "sedx_bn_")
+                    for k, fn in calls.items()}
+        fwd_b, bwd_b = bn_act.least_bytes(shape, 2, act)
+        bound_ms = (fwd_b + bwd_b) / PEAK_BYTES_PER_S * 1e3
+        total = sum(kernels.values())
+        if bound_ms > 1.05 * total:
+            raise AssertionError(f"bn_act {act}: {total} ms is under the HBM "
+                                 f"bound {bound_ms} ms")
+
+        # the layer through BatchNorm: the composite's passes and the fused ones
+        bn = BatchNorm(c, dtype=torch.bfloat16).to(dev)
+        xr = x.detach().clone().requires_grad_(True)
+        layer = {}
+        for fused in (False, True):
+            def fwd():
+                return bn._forward(xr, True, None, act, fused)
+
+            def both():
+                y = fwd()
+                xr.grad = None
+                y.backward(torch.ones_like(y))
+
+            f_ms = _cuda_ms(torch, fwd, iters=5)
+            layer["fused" if fused else "stock"] = (
+                f_ms, _cuda_ms(torch, both, iters=5) - f_ms)
+        out[act] = {"kernels_ms": kernels, "profiled_ms": profiled,
+                    "total_ms": total, "bound_ms": bound_ms,
+                    "roofline_pct": 100 * bound_ms / total,
+                    "layer_fwd_bwd_ms": layer}
+        print(f"[bn_act] {act} {list(shape)} bf16 alone (CUDA events; "
+              f"profiler): " + ", ".join(
+                  f"{k} {v:.4f} ms ({profiled[k] or 0:.4f})" for k, v in kernels.items())
+              + f"; sum {total:.4f} ms, least bytes {(fwd_b + bwd_b) / 1e9:.3f} GB "
+              f"→ bound {bound_ms:.4f} ms, {100 * bound_ms / total:.2f}% of it; "
+              f"through BatchNorm fwd/bwd ms: stock {layer['stock'][0]:.4f} / "
+              f"{layer['stock'][1]:.4f}, fused {layer['fused'][0]:.4f} / "
+              f"{layer['fused'][1]:.4f} [{card}]")
+        del x, dy, xr, bn
+
+    # host cost: µs a call of each wrapper, and of a BatchNorm call forward
+    # and forward + backward on each path, at a shape the device keeps up with
+    small = (8, 64, 16, 16)
+    host = {}
+    for act in bn_act.ACTS:
+        x, dy, a, b, gs = _bn_case(torch, small, act, dev, 2)
+        host[act] = {"K1": _host_us(torch, lambda: bn_act.stats_cuda(x)),
+                     "K2": _host_us(torch, lambda: bn_act.apply_cuda(x, a, b, act)),
+                     "K3": _host_us(torch, lambda: bn_act.grad_stats_cuda(dy, x, a, b, act)),
+                     "K4": _host_us(torch, lambda: bn_act.grad_x_cuda(dy, x, a, b, gs, act))}
+        bn = BatchNorm(small[1], dtype=torch.bfloat16).to(dev)
+        xr = x.detach().clone().requires_grad_(True)
+        for fused in (False, True):
+            def both():
+                y = bn._forward(xr, True, None, act, fused)
+                y.backward(torch.ones_like(y))
+
+            side = "fused" if fused else "stock"
+            host[act][side] = (
+                _host_us(torch, lambda: bn._forward(xr, True, None, act, fused), 500),
+                _host_us(torch, both, 500))
+        print(f"[bn_act] host µs a call, {act} {list(small)}: "
+              + ", ".join(f"{k} {host[act][k]:.1f}" for k in ("K1", "K2", "K3", "K4"))
+              + f"; a BatchNorm call fwd / fwd+bwd: stock {host[act]['stock'][0]:.1f} / "
+              f"{host[act]['stock'][1]:.1f}, fused {host[act]['fused'][0]:.1f} / "
+              f"{host[act]['fused'][1]:.1f} [{card}]")
+        del x, dy, xr, bn
+    out["host_us"] = host
+    print(json.dumps({"bn_act": out}))
+    return out
+
+
 def _launches(entry):
     """The kernel entry's launches since they were last zeroed (the port's
     counter ``ops.<entry>.launches``)."""
@@ -559,10 +755,58 @@ def _launches(entry):
     return trace.counters().get(f"ops.{entry}.launches", 0)
 
 
-def _zero_launches():
-    """Zero the port's counters, the launch counters among them."""
+# the bn_act counters by phase (the ``kernels`` line's ``bn_act`` entry):
+# ``calls``, ``plain_calls`` (the CPU's train-mode calls among them: the
+# phases' CPU reference steps) and ``launches`` of this process and of the
+# tools' children; ``card_plain``, train-mode calls on a CUDA tensor that
+# took the composite in this process, which must stay 0
+_BN_KEYS = ("calls", "plain_calls", "launches")
+_BN_TALLY: dict[str, dict[str, int]] = {}
+_BN_PHASE = ["phases_1_to_4_and_15"]
+
+
+def _bn_tally(counters=None):
+    """Add ``counters`` (the registry's, when ``None``) to the current
+    phase's ``bn_act`` tally."""
     from sound_event_detection_dcase2017_task4_torch import trace
 
+    counters = trace.counters() if counters is None else counters
+    tally = _BN_TALLY.setdefault(_BN_PHASE[0], dict.fromkeys(
+        _BN_KEYS + ("card_plain",), 0))
+    for k in _BN_KEYS:
+        tally[k] += counters.get(f"ops.bn_act.{k}", 0)
+    return tally
+
+
+def _bn_phase(name):
+    """Close the current phase's ``bn_act`` tally and open ``name``'s."""
+    _zero_launches()
+    _BN_PHASE[0] = name
+    _bn_tally({})
+
+
+def _watch_batchnorm():
+    """Count, into ``card_plain``, every train-mode ``BatchNorm`` call on a
+    CUDA tensor that takes the composite (phase 15 times the composite on
+    purpose, before this is installed)."""
+    from sound_event_detection_dcase2017_task4_torch.models.blocks import BatchNorm
+
+    inner = BatchNorm._forward
+
+    def _forward(self, x, train, mesh, act, fused):
+        if train and x.is_cuda and not fused:
+            _bn_tally({})["card_plain"] += 1
+        return inner(self, x, train, mesh, act, fused)
+
+    BatchNorm._forward = _forward
+
+
+def _zero_launches():
+    """Zero the port's counters, the launch counters among them, after
+    adding the ``bn_act`` counters to the current phase's tally."""
+    from sound_event_detection_dcase2017_task4_torch import trace
+
+    _bn_tally()
     trace.reset_counters()
 
 
@@ -2741,6 +2985,8 @@ def _child_launches(report, what, logmel=0, bank=0):
     ``True``, or zero for ``0``."""
     if any(report["plain"].values()):
         raise AssertionError(f"{what}: the plain frontend ran: {report}")
+    if "counters" in report:
+        _bn_tally(report["counters"])
     for key, want in (("logmel", logmel), ("logmel_bank", bank)):
         got = report[key]
         if want is True and got < 1 or want is not True and got != want:
@@ -3052,22 +3298,36 @@ def main() -> int:
     phase_build(logmel_cuda, sedt.config.DEFAULT)
     kernel = phase_kernel(torch, sedt, card)
     phase_gru(torch, card)
+    phase_bn_act(torch, card)
+    _watch_batchnorm()
+    _bn_phase("slice")
     kernel["launches"] = phase_slice(torch, sedt, card)
+    _bn_phase("bank_kernel")
     bank_kernel, bank, targets, scale = phase_bank_kernel(torch, sedt, card)
+    _bn_phase("train")
     bank_kernel["launches"] = phase_train(torch, sedt, card, bank, targets,
                                           scale)
     root = tempfile.mkdtemp(prefix="sedx_cli_")
     try:
+        _bn_phase("cli")
         cli, ws = phase_cli(torch, sedt, card, root)
+        _bn_phase("resume")
         resume = phase_jax_resume(torch, sedt, card, root, ws)
+        _bn_phase("zoo")
         zoo = phase_zoo(torch, sedt, card, bank, targets, scale, ws)
+        _bn_phase("runme")
         kernel["launches_runme"] = phase_runme(torch, sedt, card, root, ws)
+        _bn_phase("parallel")
         dp = phase_parallel(torch, sedt, card, bank, targets, scale, ws)
         del bank
+        _bn_phase("tools")
         tools = phase_tools(torch, sedt, card, root)
     finally:
         shutil.rmtree(root)
+    _bn_phase("entry")
     kernel["launches_entry"] = phase_entry(torch, card)
+    _bn_phase("end")
+    del _BN_TALLY["end"]
     kernel["launches_cli"] = cli["logmel"]
     kernel["launches_resume"] = resume["logmel"]
     bank_kernel["launches_resume"] = resume["logmel_bank"]
@@ -3084,7 +3344,18 @@ def main() -> int:
                  if m in sys.modules]
     if forbidden:
         raise AssertionError(f"the port pulled in {forbidden}")
-    print(json.dumps({"kernels": [kernel, bank_kernel]}))
+    bn_kernel = {"name": "bn_act", "route": "cuda",
+                 "source": "sound_event_detection_dcase2017_task4_torch/ops/csrc/bn_act.cu",
+                 "phases": _BN_TALLY}
+    for phase, tally in _BN_TALLY.items():
+        print(f"[bn_act] {phase}: " + ", ".join(f"{k} {v}" for k, v in tally.items()))
+    if any(t["card_plain"] for t in _BN_TALLY.values()):
+        raise AssertionError(f"train-mode BatchNorm took the composite on the card: "
+                             f"{_BN_TALLY}")
+    if not all(_BN_TALLY[p]["calls"] and _BN_TALLY[p]["launches"]
+               for p in ("train", "cli", "zoo", "parallel")):
+        raise AssertionError(f"a training phase ran no bn_act kernel: {_BN_TALLY}")
+    print(json.dumps({"kernels": [kernel, bank_kernel, bn_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import parallel
+from .. import parallel, trace
+from ..ops import bn_act
 
 __all__ = ["ConvBlock", "GLUBlock", "AttBlock", "BatchNorm", "LayerNorm",
            "Dropout", "dropout", "Dense", "LecunDense", "frozen_statistics",
@@ -143,6 +144,14 @@ class BatchNorm(nn.Module):
     ``SyncBatchNorm`` would keep the unbiased running variance. A recompute
     under remat issues the collective again, in the same order on every
     rank.
+
+    ``act`` is the epilogue the block asks for (``ops.bn_act.ACTS``). Train
+    mode on a CUDA tensor takes the sums from a kernel and applies
+    ``act(x·a + b)`` with another, each one pass over ``x`` with float32
+    arithmetic rounded once to x's dtype; its backward is two more passes
+    (``ops.bn_act``). The ``[C]`` math between them is the code above.
+    The counters ``ops.bn_act.calls`` and ``ops.bn_act.plain_calls`` count
+    train-mode calls on each path.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
@@ -158,12 +167,29 @@ class BatchNorm(nn.Module):
         self.recomputing = False
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                mesh: parallel.Mesh | None = None) -> torch.Tensor:
+                mesh: parallel.Mesh | None = None,
+                act: str = "none") -> torch.Tensor:
+        """``act(BatchNorm(x))`` with ``act`` one of ``bn_act.ACTS``: the
+        identity, ReLU, or ReLU then a 2×2 floor average pool. Train mode
+        on a CUDA tensor runs the hand-written kernels (``ops.bn_act``);
+        the CPU and eval mode run the composite below."""
+        return self._forward(x, train, mesh, act, train and x.is_cuda)
+
+    def _forward(self, x, train, mesh, act, fused):
+        """:meth:`forward` on the path ``fused`` names; ``fused`` on a CPU
+        tensor runs the kernels' plain versions (how the tests run the fused
+        path without a card)."""
         if train:
-            dims = (0,) + tuple(range(2, x.ndim))
-            xf = x.to(torch.float32)
-            sums = parallel.all_reduce_sum(
-                torch.cat([xf.sum(dims), (xf * xf).sum(dims)]), mesh)
+            trace.count("ops.bn_act.calls" if fused
+                        else "ops.bn_act.plain_calls")
+            if fused:
+                link = bn_act.Link(act)
+                sums = bn_act.batch_sums(x, link)
+            else:
+                dims = (0,) + tuple(range(2, x.ndim))
+                xf = x.to(torch.float32)
+                sums = torch.cat([xf.sum(dims), (xf * xf).sum(dims)])
+            sums = parallel.all_reduce_sum(sums, mesh)
             count = parallel.mesh_size(mesh) * (x.numel() // x.shape[1])
             mean, ex2 = (sums / count).chunk(2)
             var = torch.clamp(ex2 - mean * mean, min=0.0)
@@ -178,9 +204,22 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         a = self.weight * torch.rsqrt(var + self.epsilon)
         b = self.bias - mean * a
+        if fused:
+            return bn_act.batch_apply(x, a, b, link)
         shape = (1, -1) + (1,) * (x.ndim - 2)
         dt = self.compute_dtype
-        return x * a.to(dt).view(shape) + b.to(dt).view(shape)
+        return _activate(x * a.to(dt).view(shape) + b.to(dt).view(shape), act)
+
+
+def _activate(y: torch.Tensor, act: str) -> torch.Tensor:
+    """The epilogues of ``BatchNorm`` on the composite path."""
+    if act == "none":
+        return y
+    if act == "relu":
+        return F.relu(y)
+    if act == "relu_pool":
+        return F.avg_pool2d(F.relu(y), (2, 2))
+    raise ValueError(f"act must be one of {bn_act.ACTS} (got {act!r})")
 
 
 @contextlib.contextmanager
@@ -225,7 +264,8 @@ class LayerNorm(nn.Module):
 
 class ConvBlock(nn.Module):
     """2 × (3×3 conv, padding 1, no bias → BN → ReLU) → 2×2 average pool
-    (floor), on ``[B, C, T, F]``."""
+    (floor), on ``[B, C, T, F]``. The BatchNorms take ReLU as their
+    epilogue, the second one a 2×2 pool too."""
 
     def __init__(self, in_channels: int, channels: int,
                  pool: tuple[int, int] = (2, 2),
@@ -246,10 +286,13 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 mesh: parallel.Mesh | None = None) -> torch.Tensor:
         dt = self.compute_dtype
-        for conv, bn in zip(self.convs, self.bns):
+        # a 2x2 pool goes into the last BatchNorm's epilogue
+        fold = self.pool == (2, 2)
+        for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
             x = F.conv2d(x.to(dt), conv.weight.to(dt), padding=1)
-            x = F.relu(bn(x, train, mesh))
-        if self.pool != (1, 1):
+            last = i == len(self.convs) - 1
+            x = bn(x, train, mesh, "relu_pool" if fold and last else "relu")
+        if self.pool not in ((1, 1), (2, 2)):
             x = F.avg_pool2d(x, self.pool)
         return x
 

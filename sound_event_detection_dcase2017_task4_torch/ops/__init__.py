@@ -1,1 +1,2 @@
-"""Frontend ops: host DSP constants, the plain PyTorch log-mel, the CUDA kernel."""
+"""Ops: host DSP constants, the plain PyTorch log-mel, the hand-written CUDA
+kernels (the log-mel frontend, train-mode BatchNorm) and their builder."""

@@ -31,11 +31,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
@@ -44,7 +39,7 @@ import torch
 
 from .. import trace
 from ..config import Config, DEFAULT
-from . import dsp
+from . import dsp, nvcc
 from .stft import _geometry, check_bank, pad_center
 
 __all__ = ["Plan", "build", "check_window",
@@ -52,9 +47,8 @@ __all__ = ["Plan", "build", "check_window",
            "shared_bytes"]
 
 SOURCE = Path(__file__).parent / "csrc" / "logmel.cu"
-BUILD_DIR = Path(__file__).parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+BUILD_DIR = nvcc.BUILD_DIR
+NVCC_FLAGS = nvcc.FLAGS
 
 # Block shape of csrc/logmel.cu (checked against the library at load):
 # frames per block, threads per frame, frames in flight per block.
@@ -75,18 +69,6 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = os.path.join(home, "bin", "nvcc")
-    if os.path.isfile(cand):
-        return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build "
-                       f"the log-mel kernel from {SOURCE}")
-
-
 def build():
     """Compile ``csrc/logmel.cu`` for ``sm_90a`` (once per source version)
     and load it. Raises on any compiler or loader failure."""
@@ -94,27 +76,7 @@ def build():
     with _lib_lock:
         if _lib is not None:
             return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so_path = BUILD_DIR / f"liblogmel_{tag}.so"
-        log = "(loaded a library built earlier)"
-        if not so_path.exists():
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True, timeout=600)
-                log = proc.stdout + proc.stderr
-                if proc.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({proc.returncode}) on {SOURCE}:\n{log}")
-                os.replace(tmp, so_path)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-        lib = ctypes.CDLL(str(so_path))
+        lib, log = nvcc.build_library(SOURCE, "logmel", NVCC_FLAGS, BUILD_DIR)
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         sizes = [ci] * 9          # rows, frames, win, hop, stages, tw, used, w, mel
         lib.sedx_logmel_launch.argtypes = [vp, vp, vp, vp, ci, *sizes, cf, cf, vp]

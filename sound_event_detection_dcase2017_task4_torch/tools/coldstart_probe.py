@@ -11,17 +11,19 @@ apart:
   built in a warm one (``None`` in the plain cells);
 * ``build_s`` — model, train state and frontend;
 * ``first_step_s`` — the first train step, read back (cuDNN's first-call
-  setup);
+  setup; on the card, in a cold cell, the build of the train-mode
+  BatchNorm kernels, ``ops.bn_act``, which every card cell trains
+  through);
 * ``second_step_s`` — the next step, for reference.
 
 Cells: {warm, cold} × {kernel, plain}. The step is the bench step's model
 (``Cnn_9layers_Gru_FrameAtt``, bf16, batch 128, mean −30 / std 15) fed
 float waveforms from the host: the waveform kernel in the kernel cells,
 the plain PyTorch frontend in the plain cells (the route ``--no_pallas``
-takes, ``main._frontends``). "Cold" points ``ops.logmel_cuda.BUILD_DIR`` at
-a new temporary directory before the first use, so the kernel is built
-with nvcc in the cell; "warm" uses the package's build directory, where
-the parent built the library first.
+takes, ``main._frontends``). "Cold" points ``ops.logmel_cuda.BUILD_DIR``
+and ``ops.bn_act.BUILD_DIR`` at a new temporary directory before the first
+use, so the kernels are built with nvcc in the cell; "warm" uses the
+package's build directory, where the parent built the libraries first.
 
 Usage (one JSON line per cell, with the card's name and power limit)::
 
@@ -60,7 +62,7 @@ def run_cell(cell: str, device=None, batch: int = BATCH) -> dict:
     from ..config import DEFAULT as cfg
     from ..main import _frontends
     from ..models import get_model
-    from ..ops import logmel_cuda
+    from ..ops import bn_act, logmel_cuda
     import_s = time.perf_counter() - t_start
 
     dev = resolve_device(device)
@@ -76,7 +78,7 @@ def run_cell(cell: str, device=None, batch: int = BATCH) -> dict:
     cold_dir = None
     if cell.startswith("cold"):
         cold_dir = Path(tempfile.mkdtemp(prefix="sedx_coldbuild_"))
-        logmel_cuda.BUILD_DIR = cold_dir
+        logmel_cuda.BUILD_DIR = bn_act.BUILD_DIR = cold_dir
     try:
         kernel_build_s = None
         if kernel:
@@ -132,10 +134,11 @@ def main(argv=None, device=None) -> list:
 
     resolve_device(device)                   # no card: raise here
     cells = [args.cell] if args.cell else list(CELLS)
-    if on_card(device) and "warm_kernel" in cells:
-        from ..ops import logmel_cuda
+    if on_card(device) and any(c.startswith("warm") for c in cells):
+        from ..ops import bn_act, logmel_cuda
 
         logmel_cuda.build()                  # what "warm" finds built
+        bn_act.build()
     records = []
     for cell in cells:
         t0 = time.perf_counter()

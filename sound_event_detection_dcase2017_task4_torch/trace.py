@@ -14,7 +14,9 @@ train --profile_dir``, or a benchmark's tracer). Names are dotted,
   packing, where one runs (a mesh of 2 or more; ``all_reduce_sum``'s
   backward on autograd's thread too);
 * ``sedx.ops.logmel``, ``sedx.ops.logmel_bank``: the log-mel kernel's two
-  entries (``ops.logmel_cuda``).
+  entries (``ops.logmel_cuda``);
+* ``sedx.ops.bn_act``: a forward launch of the train-mode BatchNorm
+  kernels (``ops.bn_act``).
 
 A device operation belongs to the innermost step span (``sedx.train.*``,
 ``sedx.parallel.*``) open when it was launched, on any thread.
@@ -23,8 +25,11 @@ A device operation belongs to the innermost step span (``sedx.train.*``,
 counter of the port: ``ops.logmel.launches`` and
 ``ops.logmel_bank.launches`` (the kernel's launches),
 ``ops.stft.logmel.calls`` and ``ops.stft.logmel_bank.calls`` (the plain
-frontends' calls), ``parallel.<fn>.calls`` and ``parallel.<fn>.bytes``
-(collectives run, and the bytes this rank put into them). This module
+frontends' calls), ``ops.bn_act.calls``, ``ops.bn_act.plain_calls`` and
+``ops.bn_act.launches`` (train-mode BatchNorm calls on the kernels and on
+the composite, and the kernels' launches), ``parallel.<fn>.calls`` and
+``parallel.<fn>.bytes`` (collectives run, and the bytes this rank put into
+them). This module
 adds no exporter, environment variable or flag.
 """
 

@@ -13,8 +13,12 @@ waveform kernel (off); the GLU and Transformer steps match the CPU's;
 ``calculate_feature_for_all_audio_files`` packs WAVs through the waveform
 kernel as the CPU does; the data-parallel step under a 1-rank NCCL group
 equals the step with no group; ``examples.minimal_train`` with no device
-trains through the waveform kernel. This file imports nothing of the JAX
-package.
+trains through the waveform kernel. The train-mode BatchNorm kernels
+(``ops.bn_act``) are held to their plain versions at every block shape of
+the flagship and the GLU, refuse what they do not take, run 8 and 16
+times a step in those models with no composite call, and keep the running
+statistics to one move a step under the GLU's ``remat``. This file imports
+nothing of the JAX package.
 """
 
 import numpy as np
@@ -26,7 +30,8 @@ from sound_event_detection_dcase2017_task4_torch import (config, features,
                                                          train)
 from sound_event_detection_dcase2017_task4_torch.data import hdf5
 from sound_event_detection_dcase2017_task4_torch.models import SedCnn
-from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda, stft
+from sound_event_detection_dcase2017_task4_torch.models import get_model
+from sound_event_detection_dcase2017_task4_torch.ops import bn_act, logmel_cuda, stft
 
 pytestmark = pytest.mark.cuda
 
@@ -342,3 +347,154 @@ def test_minimal_train_example_runs_through_the_waveform_kernel(cuda, monkeypatc
     assert (_launches("logmel_bank") - b1, _launches("logmel") - b2) == (0, 4)
     assert plain == []
     assert len(events) == 4 and all(isinstance(e, list) for e in events)
+
+
+# --- train-mode BatchNorm (ops.bn_act) ----------------------------------------
+
+BLOCK_SHAPES = [(8, 64, 1001, 64), (8, 128, 500, 32), (8, 256, 250, 16),
+                (8, 512, 125, 8)]
+
+
+def _bn_inputs(shape, dtype, act, dev, seed=0):
+    """``x``, ``a``, ``b``, ``dy`` and ``gs`` as a step gives them: ``a``
+    and ``b`` from ``x``'s batch statistics, ``gs`` the gradient of the
+    sums under ``dy`` (``bn_act.sums_grad``)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, c, t, f = shape
+    x = (torch.randn(shape, generator=g, device=dev)
+         * (0.5 + torch.rand(1, c, 1, 1, generator=g, device=dev))
+         + 0.3 * torch.randn(1, c, 1, 1, generator=g, device=dev)).to(dtype)
+    weight = 0.5 + torch.rand(c, generator=g, device=dev)
+    bias = 0.2 * torch.randn(c, generator=g, device=dev)
+    out = (b, c, t // 2, f // 2) if act == "relu_pool" else shape
+    dy = torch.randn(out, generator=g, device=dev).to(dtype)
+    a, bb, gs = bn_act.sums_grad(x, dy, weight, bias, act)
+    return x, a, bb, dy, gs
+
+
+def _sums_close(got, x64_terms):
+    """``got [2C]`` within float32's summation error of the float64 sums:
+    1e-5 of each channel's sum of magnitudes."""
+    want = torch.cat([t.sum((0, 2, 3)) for t in x64_terms])
+    mag = torch.cat([t.abs().sum((0, 2, 3)) for t in x64_terms])
+    assert bool(((got.double() - want).abs() <= 1e-5 * mag + 1e-30).all()), \
+        float(((got.double() - want).abs() / mag).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("act", bn_act.ACTS)
+@pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=lambda s: f"{s[2]}x{s[3]}x{s[1]}")
+def test_bn_act_kernels_match_plain(cuda, shape, act, dtype):
+    """K1-K4 against the plain versions at each conv-stack block's shape
+    (batch 8). Reductions: within 1e-5 of each channel's sum of magnitudes
+    of the float64 sums. Elementwise outputs: 2 ulp of bf16, or 1e-5 of
+    float32, away from ReLU's kink (the kernels' fused multiply-add and the
+    plain version's two roundings may put a point within 1e-4 of it on
+    either side); ``dx`` besides region by region against float64
+    (``bn_act.grad_x_mismatch``), where ``g`` is 0 at ``c₁ + c₂·x``'s own
+    scale. Reductions repeat bit for bit."""
+    x, a, b, dy, gs = _bn_inputs(shape, dtype, act, cuda)
+    x64, dy64 = x.double(), dy.double()
+    a64, b64, gs64 = a.double(), b.double(), gs.double()
+    s1 = bn_act.stats_cuda(x)
+    _sums_close(s1, [x64, x64 * x64])
+    assert torch.equal(bn_act.stats_cuda(x), s1)
+    g64 = bn_act._grad_z(dy64, x64, a64, b64, act)
+    g1 = bn_act.grad_stats_cuda(dy, x, a, b, act)
+    _sums_close(g1, [g64, g64 * x64])
+    assert torch.equal(bn_act.grad_stats_cuda(dy, x, a, b, act), g1)
+
+    rtol = 2 ** -7 if dtype == torch.bfloat16 else 1e-5
+    away = (bn_act._z(x64, a64, b64).abs() > 1e-4) | (act == "none")
+    y1, y0 = bn_act.apply_cuda(x, a, b, act), bn_act.apply_plain(x, a, b, act)
+    assert y1.dtype == dtype and y1.shape == y0.shape
+    keep = away if act != "relu_pool" else torch.ones_like(y1, dtype=torch.bool)
+    torch.testing.assert_close(y1.float()[keep], y0.float()[keep], rtol=rtol,
+                               atol=1e-5)
+    d1 = bn_act.grad_x_cuda(dy, x, a, b, gs, act)
+    d0 = bn_act.grad_x_plain(dy, x, a, b, gs, act)
+    assert d1.dtype == dtype
+    torch.testing.assert_close(d1.float()[away], d0.float()[away], rtol=rtol,
+                               atol=1e-5)
+    regions = bn_act.grad_x_mismatch(
+        d1, dy, x, a, b, gs, act, 2 ** -7 if dtype == torch.bfloat16 else 2 ** -20)
+    want = {"none": {"g"}, "relu": {"g", "masked"},
+            "relu_pool": {"g", "masked"} | ({"dropped"} if shape[2] % 2 else set())}
+    assert {k for k, (_, n) in regions.items() if n} == want[act], regions
+    assert all(w <= 1 for w, _ in regions.values()), regions
+    torch.cuda.synchronize()
+
+
+def test_bn_act_kernels_reject_bad_inputs(cuda):
+    x, a, b, dy, gs = _bn_inputs((2, 4, 6, 8), torch.bfloat16, "relu", cuda)
+    for fn, args, err in (
+            (bn_act.stats_cuda, (x.cpu(),), ValueError),
+            (bn_act.stats_cuda, (x.transpose(2, 3),), ValueError),
+            (bn_act.stats_cuda, (x.to(memory_format=torch.channels_last),), ValueError),
+            (bn_act.stats_cuda, (x.half(),), TypeError),
+            (bn_act.stats_cuda, (x.double(),), TypeError),
+            (bn_act.stats_cuda, (x[0],), ValueError),
+            (bn_act.apply_cuda, (x, a.half(), b, "relu"), ValueError),
+            (bn_act.apply_cuda, (x, a[:3], b, "relu"), ValueError),
+            (bn_act.apply_cuda, (x, a, b, "gelu"), ValueError),
+            (bn_act.apply_cuda, (x[:, :, :1].contiguous(), a, b, "relu_pool"), ValueError),
+            (bn_act.grad_stats_cuda, (dy.float(), x, a, b, "relu"), ValueError),
+            (bn_act.grad_stats_cuda, (dy[:, :, :3], x, a, b, "relu"), ValueError),
+            (bn_act.grad_x_cuda, (dy, x, a, b, gs[:4], "relu"), ValueError)):
+        with pytest.raises(err):
+            fn(*args)
+
+
+@pytest.mark.parametrize("model_type,calls", [("Cnn_9layers_Gru_FrameAtt", 8),
+                                              ("Cnn_9layers_Glu_AttPooling", 16)])
+def test_train_step_runs_every_batchnorm_through_the_kernels(cuda, model_type, calls):
+    """A bf16 step of the full-width flagship and GLU: 8 and 16 fused
+    BatchNorm calls, no composite one, and their kernel launches."""
+    model = get_model(model_type, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(model, device=cuda)
+    step = train.make_train_step(model, state, mixup_alpha=1.0)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(4, 101, 64).astype(np.float32))
+    y = (rng.rand(4, 17) < 0.2).astype(np.float32)
+    step(x, y)                                              # builds
+    before = trace.counters()
+    m = step(x, y)
+    torch.cuda.synchronize()
+    got = {k: trace.counters().get(k, 0) - before.get(k, 0)
+           for k in ("ops.bn_act.calls", "ops.bn_act.plain_calls",
+                     "ops.bn_act.launches")}
+    # forward: 2 + 1 launches a call; backward: 2 + 1, the pool's tail on an
+    # odd plane (101 frames, then 50, 25, 12: the tail in blocks 1 and 3)
+    tails = 2 if model_type.startswith("Cnn_9layers_Gru") else 0
+    assert got == {"ops.bn_act.calls": calls, "ops.bn_act.plain_calls": 0,
+                   "ops.bn_act.launches": 6 * calls + tails}
+    assert np.isfinite(float(m["loss"]))
+
+
+def test_glu_remat_moves_the_running_statistics_once_a_step(cuda):
+    """The GLU with ``remat`` on the card: its recompute runs the fused
+    path again (16 calls for 8 BatchNorms) and leaves the running
+    statistics where one f32 step without ``remat`` puts them."""
+    cfg = config.Config(clip_samples=16000)
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(4, cfg.frames_num, 64).astype(np.float32))
+    y = (rng.rand(4, 17) < 0.3).astype(np.float32)
+    runs = []
+    for remat in (False, True):
+        model = SedCnn(channels=(8, 16), block="glu", remat=remat, dropout=0.0,
+                       generator=torch.Generator().manual_seed(0))
+        state = train.create_train_state(model, cfg, device=cuda)
+        step = train.make_train_step(model, state)
+        before = trace.counters().get("ops.bn_act.calls", 0)
+        step(x, y)
+        torch.cuda.synchronize()
+        runs.append((trace.counters()["ops.bn_act.calls"] - before,
+                     {k: v.cpu() for k, v in model.state_dict().items()
+                      if "running" in k}))
+    (c0, s0), (c1, s1) = runs
+    assert (c0, c1) == (8, 16)
+    for k in s0:
+        assert not torch.equal(s0[k], torch.zeros_like(s0[k]) if "mean" in k
+                               else torch.ones_like(s0[k])), k
+        torch.testing.assert_close(s1[k], s0[k], rtol=1e-5, atol=1e-6)

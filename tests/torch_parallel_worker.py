@@ -211,5 +211,38 @@ def exchange_log_job(spec):
                   "--eval_interval=2")
 
 
+def fused_bn(spec, mesh, act):
+    """One train-mode BatchNorm call of the fused path (``ops.bn_act``'s
+    plain versions on the CPU) in float64 on this rank's rows of
+    ``spec["x"]``, and its backward from this rank's rows of
+    ``spec["dy"][act]``: the output, the gradients, the running statistics
+    and the ``parallel.all_reduce_sum`` collectives of each direction."""
+    from sound_event_detection_dcase2017_task4_torch import trace
+    from sound_event_detection_dcase2017_task4_torch.models.blocks import BatchNorm
+
+    bn = BatchNorm(spec["x"].shape[1]).double()
+    with torch.no_grad():
+        for k in ("weight", "bias", "running_mean", "running_var"):
+            getattr(bn, k).copy_(spec[k])
+    x = parallel.shard_batch(spec["x"], mesh).clone().requires_grad_(True)
+
+    def reduces():
+        return trace.counters().get("parallel.all_reduce_sum.calls", 0)
+
+    n0 = reduces()
+    y = bn._forward(x, True, mesh, act, True)
+    n1 = reduces()
+    y.backward(parallel.shard_batch(spec["dy"][act], mesh))
+    return {"y": y.detach(), "dx": x.grad, "dweight": bn.weight.grad,
+            "dbias": bn.bias.grad, "running_mean": bn.running_mean.clone(),
+            "running_var": bn.running_var.clone(),
+            "reduces": (n1 - n0, reduces() - n1)}
+
+
+def bn_act_job(spec):
+    mesh = parallel.make_mesh("cpu")
+    return {act: fused_bn(spec, mesh, act) for act in spec["dy"]}
+
+
 JOBS = {"step": step_job, "cli": cli_job, "trace": trace_job,
-        "exchange_log": exchange_log_job}
+        "exchange_log": exchange_log_job, "bn_act": bn_act_job}
