@@ -32,26 +32,31 @@ from .. import parallel, trace
 from ..ops import bn_act
 
 __all__ = ["ConvBlock", "GLUBlock", "AttBlock", "BatchNorm", "LayerNorm",
-           "Dropout", "dropout", "Dense", "LecunDense", "frozen_statistics",
-           "interpolate", "pad_framewise_output", "frames_after_pooling"]
+           "Dropout", "dropout", "drop_path", "drop_path_mask", "Dense",
+           "LecunDense",
+           "frozen_statistics", "interpolate", "pad_framewise_output",
+           "frames_after_pooling"]
 
 
 class Dense(nn.Linear):
     """``nn.Linear`` computing in ``dtype`` with float32 weights (flax
-    ``Dense(dtype=...)``); glorot-uniform weight, zero bias."""
+    ``Dense(dtype=...)``); glorot-uniform weight, zero bias (none when
+    ``bias`` is false)."""
 
     def __init__(self, in_features: int, out_features: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features)
+                 dtype: torch.dtype = torch.float32, bias: bool = True):
+        super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
     def reset_parameters(self, generator: torch.Generator | None = None):
         nn.init.xavier_uniform_(self.weight, generator=generator)
-        nn.init.zeros_(self.bias)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class LecunDense(Dense):
@@ -67,29 +72,74 @@ class LecunDense(Dense):
         nn.init.zeros_(self.bias)
 
 
+def _threshold(rate: float) -> int:
+    threshold = int(round((1.0 - rate) * 65536))
+    if not 0 <= threshold <= 65536:
+        raise ValueError(f"dropout rate {rate} outside [0, 1]")
+    return threshold
+
+
+def _keep_mask(shape: tuple, rate: float, generator: torch.Generator | None,
+               mesh, device) -> torch.Tensor | None:
+    """The keep mask of ``shape`` (this rank's) drawn at ``rate`` by
+    :class:`Dropout`'s rule; ``None`` at rate 0 and all false at rate 1,
+    neither drawing."""
+    if generator is None:
+        raise ValueError("train-mode Dropout needs an explicit "
+                         "torch.Generator")
+    threshold = _threshold(rate)
+    if threshold == 65536:
+        return None
+    if threshold == 0:
+        return torch.zeros(shape, dtype=torch.bool, device=device)
+    # the global batch's draw, this rank's rows of it
+    return parallel.shard_batch(torch.rand(
+        (parallel.mesh_size(mesh) * shape[0],) + tuple(shape[1:]),
+        generator=generator, device=device), mesh) < threshold / 65536.0
+
+
+def _apply(x: torch.Tensor, mask: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """``x`` under a keep mask of :func:`_keep_mask` (``x``'s shape, or one
+    that broadcasts to it)."""
+    if mask is None:
+        return x
+    threshold = _threshold(rate)
+    if threshold == 0:
+        return torch.zeros_like(x)
+    # keep rounded to x's dtype, as a host number: no device traffic
+    keep = float(torch.tensor(threshold / 65536.0, dtype=x.dtype))
+    return torch.where(mask, x / keep, x.new_zeros(()))
+
+
 def dropout(x: torch.Tensor, rate: float, train: bool = False,
             generator: torch.Generator | None = None,
             mesh: parallel.Mesh | None = None) -> torch.Tensor:
     """The function of :class:`Dropout` with its rate as an argument."""
     if not train:
         return x
-    if generator is None:
-        raise ValueError("train-mode Dropout needs an explicit "
-                         "torch.Generator")
-    threshold = int(round((1.0 - rate) * 65536))
-    if not 0 <= threshold <= 65536:
-        raise ValueError(f"dropout rate {rate} outside [0, 1]")
-    if threshold == 65536:
-        return x
-    if threshold == 0:
-        return torch.zeros_like(x)
-    # keep rounded to x's dtype, as a host number: no device traffic
-    keep = float(torch.tensor(threshold / 65536.0, dtype=x.dtype))
-    # the global batch's draw, this rank's rows of it
-    mask = parallel.shard_batch(torch.rand(
-        (parallel.mesh_size(mesh) * x.shape[0],) + x.shape[1:],
-        generator=generator, device=x.device), mesh) < threshold / 65536.0
-    return torch.where(mask, x / keep, x.new_zeros(()))
+    return _apply(x, _keep_mask(x.shape, rate, generator, mesh, x.device), rate)
+
+
+def drop_path_mask(rows: int, rate: float, generator: torch.Generator | None,
+                   mesh: parallel.Mesh | None = None,
+                   device=None) -> torch.Tensor | None:
+    """Stochastic depth's (timm's ``drop_path``) draw under
+    :class:`Dropout`'s rule: a residual branch of ``rows`` examples is
+    kept or zeroed whole per example, by one draw ``torch.rand(rows) <
+    threshold/65536`` from ``generator``; the keep mask ``[rows]`` (bool),
+    ``None`` at rate 0 (no draw). Under a ``mesh`` the draw is the global
+    batch's, the rank keeping its rows."""
+    return _keep_mask((rows,), rate, generator, mesh, device)
+
+
+def drop_path(x: torch.Tensor, mask: torch.Tensor | None,
+              rate: float) -> torch.Tensor:
+    """A branch ``x [B, ...]`` under a mask of :func:`drop_path_mask`
+    drawn at ``rate``: a kept example is divided by the keep probability
+    cast to x's dtype, a dropped one is 0; ``None`` keeps ``x``."""
+    if mask is not None:
+        mask = mask.view((-1,) + (1,) * (x.ndim - 1))
+    return _apply(x, mask, rate)
 
 
 class Dropout(nn.Module):

@@ -31,7 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -43,9 +43,11 @@ from ..config import classes_num as _default_classes
 from .blocks import (AttBlock, ConvBlock, Dense, Dropout, GLUBlock, LayerNorm,
                      LecunDense, dropout, frozen_statistics, interpolate,
                      pad_framewise_output)
+from .htsat import HTSAT
 
 __all__ = ["BiGRU", "SelfAttention", "TransformerEncoderLayer", "SedCnn",
-           "MODEL_REGISTRY", "get_model", "positional_encoding"]
+           "MODEL_REGISTRY", "PORT_REGISTRY", "get_model",
+           "positional_encoding"]
 
 
 class BiGRU(nn.Module):
@@ -347,14 +349,23 @@ MODEL_REGISTRY: dict[str, dict] = {
 }
 
 
+# Models of the port alone (no JAX counterpart; ``MODEL_REGISTRY`` stays
+# the JAX package's, name for name): ``--model_type`` → constructor.
+PORT_REGISTRY: dict[str, Callable[..., nn.Module]] = {"HTSAT": HTSAT}
+
+
 def get_model(model_type: str, classes_num: int = _default_classes,
               dtype: torch.dtype = torch.float32, remat: bool = False,
-              generator: torch.Generator | None = None) -> SedCnn:
-    """Instantiate a model by its reference ``--model_type`` string (on the
-    CPU; move it with ``.to(device)`` or hand it to ``Predictor``)."""
-    if model_type not in MODEL_REGISTRY:
-        raise KeyError(
-            f"unknown model_type {model_type!r}; available: "
-            f"{sorted(MODEL_REGISTRY)}")
-    return SedCnn(classes_num=classes_num, dtype=dtype, remat=remat,
-                  generator=generator, **MODEL_REGISTRY[model_type])
+              generator: torch.Generator | None = None) -> nn.Module:
+    """Instantiate a model by its ``--model_type`` string, from
+    ``MODEL_REGISTRY`` and then ``PORT_REGISTRY`` (on the CPU; move it with
+    ``.to(device)`` or hand it to ``Predictor``)."""
+    if model_type in MODEL_REGISTRY:
+        return SedCnn(classes_num=classes_num, dtype=dtype, remat=remat,
+                      generator=generator, **MODEL_REGISTRY[model_type])
+    if model_type in PORT_REGISTRY:
+        return PORT_REGISTRY[model_type](classes_num=classes_num, dtype=dtype,
+                                         remat=remat, generator=generator)
+    raise KeyError(
+        f"unknown model_type {model_type!r}; available: "
+        f"{sorted(MODEL_REGISTRY) + sorted(PORT_REGISTRY)}")

@@ -17,9 +17,12 @@ trains through the waveform kernel. The train-mode BatchNorm kernels
 (``ops.bn_act``) are held to their plain versions at every block shape of
 the flagship and the GLU, refuse what they do not take, run 8 and 16
 times a step in those models with no composite call, and keep the running
-statistics to one move a step under the GLU's ``remat``. This file imports
+statistics to one move a step under the GLU's ``remat``; HTS-AT's train
+pass through CUDA graphs takes the eager steps. This file imports
 nothing of the JAX package.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -498,3 +501,51 @@ def test_glu_remat_moves_the_running_statistics_once_a_step(cuda):
         assert not torch.equal(s0[k], torch.zeros_like(s0[k]) if "mean" in k
                                else torch.ones_like(s0[k])), k
         torch.testing.assert_close(s1[k], s0[k], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype,steps", [(torch.float32, 3), (torch.bfloat16, 1)],
+                         ids=["f32", "bf16"])
+def test_htsat_train_graphs_replay_the_eager_steps(cuda, dtype, steps):
+    """A small HTS-AT (mel 16, window 4, drop-path 0.5) takes mixup steps
+    through CUDA graphs (``models.train_graphs``) and, from the same
+    weights and generators, eagerly (a recording profiler keeps the pass
+    eager): losses, gradient norms, parameters and
+    bn0's running statistics agree to rtol 1e-5, the port's counters move
+    by the same amounts (the capture's warm-up taken back), and a further
+    train call's outputs agree. ``index_add_``'s atomics sum the bias
+    tables' gradients in an order of their own on each run, so in bf16,
+    where a last-bit change of a parameter can flip a rounding, one step is
+    compared (over 3 the third loss was 1.3e-4 apart); in f32, 3."""
+    from sound_event_detection_dcase2017_task4_torch.models import HTSAT
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(4, 250, 16).astype(np.float32))
+    y = (rng.rand(4, 5) < 0.3).astype(np.float32)
+    runs = []
+    for graphs in (False, True):
+        model = HTSAT(classes_num=5, spec_size=64, mel_bins=16, window=4, embed=16,
+                      depths=(2, 2, 2), heads=(2, 4, 8), drop_path=0.5, dtype=dtype,
+                      generator=torch.Generator().manual_seed(0))
+        state = train.create_train_state(model, device=cuda)
+        step = train.make_train_step(model, state, mixup_alpha=1.0)
+        with (contextlib.nullcontext() if graphs else
+              torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])):
+            before = trace.counters()
+            metrics = [step(x, y) for _ in range(steps)]
+            torch.cuda.synchronize()
+            moved = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+                     if k.startswith("ops.") and v != before.get(k, 0)}
+            out = model(x.to(cuda), train=True,
+                        generator=torch.Generator(device=cuda).manual_seed(9))
+        runs.append(([(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     moved, {k: v.detach().float().cpu() for k, v in out.items()},
+                     model._graphs._captured))
+    (eager, s0, c0, o0, cap0), (graphed, s1, c1, o1, cap1) = runs
+    assert not cap0 and len(cap1) == 1
+    np.testing.assert_allclose(graphed, eager, rtol=1e-5)
+    for k in s0:
+        torch.testing.assert_close(s1[k], s0[k], rtol=1e-5, atol=1e-6, msg=k)
+    assert c1 == c0 and c0["ops.window_attention.calls"] == steps * 6
+    for k in o0:
+        torch.testing.assert_close(o1[k], o0[k], rtol=1e-5, atol=1e-6, msg=k)

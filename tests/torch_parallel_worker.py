@@ -22,7 +22,7 @@ import torch
 import torch.distributed as dist
 
 from sound_event_detection_dcase2017_task4_torch import main, parallel, train
-from sound_event_detection_dcase2017_task4_torch.models import SedCnn
+from sound_event_detection_dcase2017_task4_torch.models import HTSAT, SedCnn
 from sound_event_detection_dcase2017_task4_torch.weights import load_jax_variables
 
 FORBIDDEN = ("jax", "flax", "optax", "sound_event_detection_dcase2017_task4_tpu")
@@ -244,5 +244,35 @@ def bn_act_job(spec):
     return {act: fused_bn(spec, mesh, act) for act in spec["dy"]}
 
 
+# a small HTS-AT in float64 compute (``bn0``'s sums stay float32), with a
+# drop-path rate high enough that the masks drop branches
+HTSAT_SMALL = dict(classes_num=5, spec_size=64, mel_bins=16, patch=4, window=4,
+                   embed=16, depths=(2, 2, 2), heads=(2, 4, 8), drop_path=0.5,
+                   dtype=torch.float64)
+
+
+def htsat_steps(spec, mesh):
+    """HTS-AT's train step with mixup α = 1 and drop-path over the global
+    log-mel batches ``spec["x"]`` (this rank's rows of each; ``mesh=None``
+    is the 1-process run): each step's loss, the first step's gradients and
+    ``bn0``'s running statistics, and the final state."""
+    model = HTSAT(generator=torch.Generator().manual_seed(0), **HTSAT_SMALL)
+    state = train.create_train_state(model, device="cpu", seed=1)
+    step = train.make_train_step(model, state, mixup_alpha=1.0, mesh=mesh)
+    out = {"loss": []}
+    for k, x in enumerate(spec["x"]):
+        m = step(x if mesh is None else parallel.shard_batch(x, mesh), spec["y"][k])
+        out["loss"].append(float(m["loss"]))
+        if k == 0:
+            out["grads"] = {n: p.grad.clone() for n, p in model.named_parameters()}
+            out["running"] = _running(model)
+    out["state"] = {k: v.clone() for k, v in model.state_dict().items()}
+    return out
+
+
+def htsat_job(spec):
+    return htsat_steps(spec, parallel.make_mesh("cpu"))
+
+
 JOBS = {"step": step_job, "cli": cli_job, "trace": trace_job,
-        "exchange_log": exchange_log_job, "bn_act": bn_act_job}
+        "exchange_log": exchange_log_job, "bn_act": bn_act_job, "htsat": htsat_job}
