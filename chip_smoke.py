@@ -190,11 +190,32 @@ random weights, in phases that each raise on failure:
    ``BatchNorm``; last the host µs a call of each wrapper and of a
    ``BatchNorm`` call on each path at ``[8, 64, 16, 16]``. It prints the
    ``bn_act`` JSON line.
+16. (run after phase 15) HTS-AT's window-attention kernels
+   (``ops.window_attention``, ``csrc/window_attention.cu``): their build
+   and registers; at each of HTS-AT's four stage shapes at batch 128 in
+   bf16 (windows of 64 tokens, heads of 24; 4/8/16/32 heads, 64/16/4/1
+   windows a clip; the shifted variant where the stage shifts), ``o``,
+   ``dq``, ``dk``, ``dv`` and the table's gradient against float64
+   (``window_attention.mismatch``, 2⁻⁷ of each element's magnitude), the
+   backward repeated bit for bit; then each stage's forward and backward
+   alone by CUDA events, beside the plain version and, as the yardstick
+   only, ``scaled_dot_product_attention`` with the bias and mask as a float
+   mask (the port never calls it), and a step's sum over HTS-AT's 12
+   blocks against the function's least bytes (11 tensors: ``P`` is
+   recomputed and ``o`` not read back) and, beside it, the 12 that
+   ``benchmark/counts/htsat.py`` counts; a float32 case against float64
+   beside the plain version (the kernels' ``__expf`` and reciprocal
+   against ``torch.softmax``); last HTS-AT at the published widths in bf16
+   through ``train.make_train_step`` at batch 128, host-fed, counters
+   zeroed before each reading: 48 kernel launches a step, capturing the
+   CUDA graphs and replaying them, 60 under ``remat`` and 12 an eval
+   forward. It prints the ``window_attention`` JSON line.
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
 ``launches_cli`` of phase 8, ``launches_zoo`` of phase 9, ``launches_runme``
 of phase 10, ``launches_parallel`` of phase 11, ``launches_tools`` of phase
-12, ``launches_entry`` of phase 13, ``launches_resume`` of phase 14; and a
+12, ``launches_entry`` of phase 13, ``launches_resume`` of phase 14; a
+``window_attention`` entry with phase 16's launches on HTS-AT's path; and a
 ``bn_act`` entry with the ``ops.bn_act`` counters of each phase after 15,
 its tools' children included, which fails the run if a train-mode
 ``BatchNorm`` call on the card took the composite or a training phase ran
@@ -208,6 +229,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import os
 import pickle
@@ -747,6 +769,243 @@ def phase_bn_act(torch, card):
     return out
 
 
+# HTS-AT's stages at the published widths: (heads, windows a clip, blocks,
+# shifted blocks); windows of 8 × 8 tokens, heads of 24
+WA_STAGES = ((4, 64, 2, 1), (8, 16, 2, 1), (16, 4, 6, 3), (32, 1, 2, 0))
+
+
+def _wa_case(torch, heads, nw, shifted, dev, seed, dtype=None):
+    """q, k, v as views of a ``qkv`` output, a bias table, the rel index,
+    the mask (or None), dO and the scale, at batch ``TRAIN_BATCH``, in
+    ``dtype`` (bf16 when None)."""
+    from sound_event_detection_dcase2017_task4_torch.ops import window_attention as wa
+
+    dtype = dtype or torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w, n, d = TRAIN_BATCH * nw, 64, 24
+    c = heads * d
+    qkv = torch.randn(w, n, 3 * c, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.view(w, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    table = 0.5 * torch.randn(225, heads, generator=g, device=dev)
+    mask = wa.shift_mask(8 * int(round(nw ** 0.5)), 8, 4).to(dev) if shifted else None
+    do = torch.randn(w, n, c, generator=g, device=dev).to(dtype)
+    return q, k, v, table, wa.relative_index(8).to(dev), mask, d ** -0.5, do
+
+
+def phase_window_attention(torch, card):
+    """Phase 16 (see the module docstring): returns the
+    ``window_attention`` line."""
+    import torch.nn.functional as F
+
+    from sound_event_detection_dcase2017_task4_torch.ops import window_attention as wa
+
+    t0 = time.perf_counter()
+    wa.build()
+    log = wa.BUILD_LOG or ""
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(n) > 0 for n in re.findall(r"(\d+) bytes spill stores", log))
+    print(f"[window_attention] ops/csrc/window_attention.cu for sm_90a in "
+          f"{time.perf_counter() - t0:.2f} s; {len(regs)} kernels, registers "
+          f"{min(regs, default=0)}-{max(regs, default=0)}, {spills} with spills")
+    for line in log.splitlines():
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
+            print(f"[window_attention] ptxas {line.strip()}")
+    dev = torch.device("cuda")
+    out = {"dtype": "bfloat16", "batch": TRAIN_BATCH, "card": card, "checks": {},
+           "stages": {}}
+    _zero_launches()
+    for heads, nw, _, shifts in WA_STAGES:
+        for shifted in sorted({False, bool(shifts)}):
+            q, k, v, table, index, mask, scale, do = _wa_case(torch, heads, nw, shifted,
+                                                              dev, 0)
+            o = wa.forward_cuda(q, k, v, table, index, mask, scale)
+            grads = wa.backward_cuda(q, k, v, table, index, mask, scale, do)
+            worst = wa.mismatch((o, *grads), q, k, v, table, index, mask, scale, do,
+                                2 ** -7, 2 ** -12)
+            again = wa.backward_cuda(q, k, v, table, index, mask, scale, do)
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            tag = f"h{heads}-nw{nw}-{'shifted' if shifted else 'plain'}"
+            out["checks"][tag] = dict(worst, repeat_equal=same)
+            print(f"[window_attention] {tag} bf16 batch {TRAIN_BATCH} against float64 "
+                  "(worst / limit): " + ", ".join(f"{k} {v:.3f}" for k, v in worst.items())
+                  + f"; backward repeats bit for bit: {same}")
+            if max(worst.values()) > 1 or not same:
+                raise AssertionError(f"window attention {tag}: {out['checks'][tag]}")
+            del o, grads, again
+    launched = _launches("window_attention")
+    if launched != 7 * (1 + 3 + 3):
+        raise AssertionError(f"window attention launched {launched} kernels, not 49")
+
+    # float32 at stage 1, shifted: the kernels' softmax (exp on the special
+    # function unit, one reciprocal a row) beside torch.softmax's (expf and
+    # a division), both against float64 at 2⁻¹⁴ of each element's magnitude
+    q, k, v, table, index, mask, scale, do = _wa_case(torch, 4, 64, True, dev, 2,
+                                                      torch.float32)
+    o0, p0 = wa.forward_plain(q, k, v, table, index, mask, scale)
+    plain = wa.mismatch((o0, *wa.backward_plain(q, k, v, p0, index, do, scale,
+                                                (table.shape, table.dtype))),
+                        q, k, v, table, index, mask, scale, do, 2 ** -14, 2 ** -12)
+    del o0, p0
+    got = wa.mismatch((wa.forward_cuda(q, k, v, table, index, mask, scale),
+                       *wa.backward_cuda(q, k, v, table, index, mask, scale, do)),
+                      q, k, v, table, index, mask, scale, do, 2 ** -14, 2 ** -12)
+    out["checks"]["f32-h4-nw64-shifted"] = {"kernels": got, "plain": plain}
+    print(f"[window_attention] h4-nw64-shifted f32 batch {TRAIN_BATCH} against float64 "
+          "(worst / limit at 2⁻¹⁴), kernels | plain version: " + ", ".join(
+              f"{k} {got[k]:.3f} | {plain[k]:.3f}" for k in got))
+    if max(got.values()) > 1:
+        raise AssertionError(f"window attention f32: {got}")
+    del q, k, v, do
+
+    # each stage alone: kernels, the plain version, the library yardstick
+    step = {"kernel": 0.0, "plain": 0.0, "library": 0.0}
+    nbytes = counted_bytes = 0
+    for heads, nw, blocks, shifts in WA_STAGES:
+        stage = {}
+        for shifted in sorted({False, bool(shifts)}):
+            q, k, v, table, index, mask, scale, do = _wa_case(torch, heads, nw, shifted,
+                                                              dev, 1)
+            w, n, d = q.shape[0], q.shape[2], q.shape[3]
+            plain = {}
+
+            def plain_fwd():
+                plain["p"] = wa.forward_plain(q, k, v, table, index, mask, scale)[1]
+
+            plain_fwd()
+            add = table[index].view(n, n, heads).permute(2, 0, 1)[None]
+            if mask is not None:
+                add = add + mask[:, None]
+            add = add.to(torch.bfloat16)
+            q5, k5, v5 = (t.detach().reshape(TRAIN_BATCH, nw, heads, n, d)
+                          .requires_grad_(True) for t in (q, k, v))
+            do5 = do.view(TRAIN_BATCH, nw, n, heads, d).transpose(2, 3)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q5, k5, v5, attn_mask=add,
+                                                      scale=scale)
+
+            def sdpa_both():
+                torch.autograd.grad(sdpa(), (q5, k5, v5), do5)
+
+            times = {
+                "kernel_fwd": _cuda_ms(torch, lambda: wa.forward_cuda(
+                    q, k, v, table, index, mask, scale)),
+                "kernel_bwd": _cuda_ms(torch, lambda: wa.backward_cuda(
+                    q, k, v, table, index, mask, scale, do)),
+                "plain_fwd": _cuda_ms(torch, plain_fwd, iters=5),
+                "plain_bwd": _cuda_ms(torch, lambda: wa.backward_plain(
+                    q, k, v, plain["p"], index, do, scale, (table.shape, table.dtype)),
+                    iters=5),
+                "library_fwd": _cuda_ms(torch, sdpa, iters=5),
+                "library_both": _cuda_ms(torch, sdpa_both, iters=5)}
+            times["kernel_profiled"] = (
+                _profiled_kernel_ms(torch, lambda: wa.forward_cuda(
+                    q, k, v, table, index, mask, scale), "sedx_wa_"),
+                _profiled_kernel_ms(torch, lambda: wa.backward_cuda(
+                    q, k, v, table, index, mask, scale, do), "sedx_wa_"))
+            # the function's least bytes of one block, bf16: q, k, v, o
+            # forward; q, k, v, dO, dq, dk, dv backward (P is recomputed, o
+            # is not read). benchmark/counts/htsat.py counts o in the
+            # backward too: 12 tensors, the counts' bound beside it
+            least = 11 * 2 * w * n * heads * d
+            counted = 12 * 2 * w * n * heads * d
+            bound_ms = least / PEAK_BYTES_PER_S * 1e3
+            kernel_ms = times["kernel_fwd"] + times["kernel_bwd"]
+            times.update(bound_ms=bound_ms, roofline_pct=100 * bound_ms / kernel_ms,
+                         counts_roofline_pct=100 * counted / PEAK_BYTES_PER_S * 1e3
+                         / kernel_ms)
+            tag = "shifted" if shifted else "plain"
+            stage[tag] = times
+            count = shifts if shifted else blocks - shifts
+            step["kernel"] += count * kernel_ms
+            step["plain"] += count * (times["plain_fwd"] + times["plain_bwd"])
+            step["library"] += count * times["library_both"]
+            nbytes += count * least
+            counted_bytes += count * counted
+            print(f"[window_attention] h{heads} nW {nw} {tag} [{w}, {heads}, {n}, {d}] "
+                  f"bf16 ms (CUDA events): kernels fwd {times['kernel_fwd']:.4f} bwd "
+                  f"{times['kernel_bwd']:.4f} (profiler {times['kernel_profiled'][0] or 0:.4f} "
+                  f"/ {times['kernel_profiled'][1] or 0:.4f}); plain fwd "
+                  f"{times['plain_fwd']:.4f} bwd {times['plain_bwd']:.4f}; sdpa fwd "
+                  f"{times['library_fwd']:.4f} fwd+bwd {times['library_both']:.4f}; "
+                  f"bound {bound_ms:.4f} ms, {times['roofline_pct']:.2f}% of it (the "
+                  f"counts' 12 tensors: {times['counts_roofline_pct']:.2f}%) [{card}]")
+            del q, k, v, do, q5, k5, v5, plain
+        out["stages"][f"h{heads}-nw{nw}"] = stage
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    counts_ms = counted_bytes / PEAK_BYTES_PER_S * 1e3
+    out["step"] = dict(step, bound_ms=bound_ms,
+                       roofline_pct=100 * bound_ms / step["kernel"],
+                       counts_bound_ms=counts_ms,
+                       counts_roofline_pct=100 * counts_ms / step["kernel"])
+    print(f"[window_attention] a step's 12 blocks, fwd + bwd ms: kernels "
+          f"{step['kernel']:.4f}, plain {step['plain']:.4f}, sdpa {step['library']:.4f}; "
+          f"least {nbytes / 1e9:.3f} GB → bound {bound_ms:.4f} ms, kernels at "
+          f"{out['step']['roofline_pct']:.2f}% (the counts' {counted_bytes / 1e9:.3f} GB: "
+          f"{out['step']['counts_roofline_pct']:.2f}%) [{card}]")
+    del table, index, mask
+    out["main_path"] = _wa_main_path(torch, card)
+    print(json.dumps({"window_attention": out}))
+    return out
+
+
+def _wa_main_path(torch, card):
+    """HTS-AT at the published widths in bf16 through the port's own
+    train step (``train.make_train_step``, host-fed waveforms at batch
+    ``TRAIN_BATCH``, mixup on): the core's kernel launches in each of two
+    steps (the first captures the CUDA graphs, the second replays them),
+    in a step under ``remat`` (eager, the attention recomputed) and in an
+    eval forward of ``BATCH`` clips (``train.make_eval_step``, under
+    ``no_grad``), each read just after the counters were zeroed."""
+    import sound_event_detection_dcase2017_task4_torch as sedt
+    from sound_event_detection_dcase2017_task4_torch import train
+    from sound_event_detection_dcase2017_task4_torch.ops import stft
+
+    cfg = sedt.config.DEFAULT
+    scalar = (np.full(cfg.mel_bins, -30.0, np.float32),
+              np.full(cfg.mel_bins, 15.0, np.float32))
+    rng = np.random.default_rng(21)
+    x = (0.1 * rng.standard_normal((TRAIN_BATCH, cfg.clip_samples))).astype(np.float32)
+    y = (rng.random((TRAIN_BATCH, cfg.classes_num)) < 0.07).astype(np.float32)
+    frontend = stft.make_logmel_fn(cfg)
+    blocks = 12
+    want = {"train": [4 * blocks, 4 * blocks], "remat": [5 * blocks], "eval": [blocks]}
+    got = {}
+    for remat in (False, True):
+        model = sedt.get_model("HTSAT", dtype=torch.bfloat16, remat=remat)
+        state = train.create_train_state(model, cfg, seed=0)    # device → cuda
+        step = train.make_train_step(model, state, frontend=frontend, scalar=scalar,
+                                     mixup_alpha=1.0, check_numerics=True)
+        key = "remat" if remat else "train"
+        got[key] = []
+        for _ in want[key]:
+            _zero_launches()
+            m = step(x, y)
+            torch.cuda.synchronize()
+            got[key].append(_launches("window_attention"))
+            if int(m["nonfinite_count"]) or not np.isfinite(float(m["loss"])):
+                raise AssertionError(f"HTS-AT {key} step: loss {float(m['loss'])}, "
+                                     f"{int(m['nonfinite_count'])} non-finite")
+        if not remat:
+            evaluate = train.make_eval_step(model, frontend=frontend, scalar=scalar)
+            _zero_launches()
+            evaluate(x[:BATCH])
+            torch.cuda.synchronize()
+            got["eval"] = [_launches("window_attention")]
+        del model, state, step
+    _zero_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[window_attention] HTS-AT bf16 at the published widths through "
+          f"make_train_step, batch {TRAIN_BATCH}: kernel launches a train step "
+          f"{got['train']} (capture, replay), under remat {got['remat']}, an eval "
+          f"forward of {BATCH} clips {got['eval']} [{card}]")
+    if got != want:
+        raise AssertionError(f"window attention launches on HTS-AT's path: {got}, "
+                             f"not {want}")
+    return got
+
+
 def _launches(entry):
     """The kernel entry's launches since they were last zeroed (the port's
     counter ``ops.<entry>.launches``)."""
@@ -762,7 +1021,7 @@ def _launches(entry):
 # took the composite in this process, which must stay 0
 _BN_KEYS = ("calls", "plain_calls", "launches")
 _BN_TALLY: dict[str, dict[str, int]] = {}
-_BN_PHASE = ["phases_1_to_4_and_15"]
+_BN_PHASE = ["phases_1_to_4_15_and_16"]
 
 
 def _bn_tally(counters=None):
@@ -3299,6 +3558,7 @@ def main() -> int:
     kernel = phase_kernel(torch, sedt, card)
     phase_gru(torch, card)
     phase_bn_act(torch, card)
+    wa = phase_window_attention(torch, card)
     _watch_batchnorm()
     _bn_phase("slice")
     kernel["launches"] = phase_slice(torch, sedt, card)
@@ -3355,7 +3615,14 @@ def main() -> int:
     if not all(_BN_TALLY[p]["calls"] and _BN_TALLY[p]["launches"]
                for p in ("train", "cli", "zoo", "parallel")):
         raise AssertionError(f"a training phase ran no bn_act kernel: {_BN_TALLY}")
-    print(json.dumps({"kernels": [kernel, bank_kernel, bn_kernel]}))
+    wa_kernel = {"name": "window_attention", "route": "cuda",
+                 "source": "sound_event_detection_dcase2017_task4_torch/ops/csrc/"
+                           "window_attention.cu",
+                 "launches": wa["main_path"]["train"][0],
+                 "launches_replay": wa["main_path"]["train"][1],
+                 "launches_remat": wa["main_path"]["remat"][0],
+                 "launches_eval": wa["main_path"]["eval"][0]}
+    print(json.dumps({"kernels": [kernel, bank_kernel, bn_kernel, wa_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

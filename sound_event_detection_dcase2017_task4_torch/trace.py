@@ -19,7 +19,8 @@ train --profile_dir``, or a benchmark's tracer). Names are dotted,
   kernels (``ops.bn_act``);
 * ``sedx.ops.window_attention`` and ``sedx.ops.window_attention.backward``:
   HTS-AT's window-attention core (``ops.window_attention``), forward and,
-  on autograd's thread, backward.
+  on autograd's thread, backward: on a card around its kernels' launches
+  (one forward, three backward), on the CPU around its plain version.
 
 A device operation belongs to the innermost step span (``sedx.train.*``,
 ``sedx.parallel.*``) open when it was launched, on any thread. The
@@ -40,7 +41,9 @@ the composite, and the kernels' launches), ``ops.window_attention.calls``,
 ``ops.window_attention.windows`` and ``ops.window_attention.shifted_calls``
 (the core's forwards, its window-heads, and its forwards with a shift mask:
 12, 1,216 a clip and 5 a forward of the published HTS-AT; a CUDA graph's
-replay adds what its capture counted),
+replay adds what its capture counted), ``ops.window_attention.launches``
+(its kernels' launches, 1 a forward and 3 a backward, on a card only: the
+count that shows the kernels ran),
 ``parallel.<fn>.calls`` and ``parallel.<fn>.bytes`` (collectives run, and the bytes this rank put into
 them). This module
 adds no exporter, environment variable or flag.

@@ -18,8 +18,12 @@ trains through the waveform kernel. The train-mode BatchNorm kernels
 the flagship and the GLU, refuse what they do not take, run 8 and 16
 times a step in those models with no composite call, and keep the running
 statistics to one move a step under the GLU's ``remat``; HTS-AT's train
-pass through CUDA graphs takes the eager steps. This file imports
-nothing of the JAX package.
+pass through CUDA graphs takes the eager steps. HTS-AT's window-attention
+kernels (``ops.window_attention``) are held to float64 beside their plain
+version at the model's four stage shapes and smaller ones, repeat their
+backward bit for bit, replay in a CUDA graph, count their launches, refuse
+what they do not take, and serve ``remat`` and the eval forward. This
+file imports nothing of the JAX package.
 """
 
 import contextlib
@@ -511,11 +515,14 @@ def test_htsat_train_graphs_replay_the_eager_steps(cuda, dtype, steps):
     weights and generators, eagerly (a recording profiler keeps the pass
     eager): losses, gradient norms, parameters and
     bn0's running statistics agree to rtol 1e-5, the port's counters move
-    by the same amounts (the capture's warm-up taken back), and a further
-    train call's outputs agree. ``index_add_``'s atomics sum the bias
-    tables' gradients in an order of their own on each run, so in bf16,
-    where a last-bit change of a parameter can flip a rounding, one step is
-    compared (over 3 the third loss was 1.3e-4 apart); in f32, 3."""
+    by the same amounts (the capture's warm-up taken back; the
+    window-attention kernels' launches among them), and a further train
+    call's outputs agree. The window-attention kernels sum the bias tables'
+    gradients in a fixed order, but the time stretch's bicubic backward
+    (``upsample_bicubic2d_backward``, into bn0's parameters) adds with
+    atomics in an order of its own on each run, eager runs included; so in
+    bf16, where a last-bit change of a parameter can flip a rounding, one
+    step is compared (over 3 the third loss was 1.6e-4 apart); in f32, 3."""
     from sound_event_detection_dcase2017_task4_torch.models import HTSAT
 
     rng = np.random.RandomState(5)
@@ -547,5 +554,200 @@ def test_htsat_train_graphs_replay_the_eager_steps(cuda, dtype, steps):
     for k in s0:
         torch.testing.assert_close(s1[k], s0[k], rtol=1e-5, atol=1e-6, msg=k)
     assert c1 == c0 and c0["ops.window_attention.calls"] == steps * 6
+    # 6 blocks: a launch a forward, 3 a backward
+    assert c0["ops.window_attention.launches"] == steps * 6 * 4
     for k in o0:
         torch.testing.assert_close(o1[k], o0[k], rtol=1e-5, atol=1e-6, msg=k)
+
+
+# --- HTS-AT's window-attention core (ops.window_attention) ---------------------
+
+# (batch, heads, windows a clip, shifted, dtype, tokens a window side, head
+# width): HTS-AT's four stages at batch 128 in bf16 (the grid 64², 32², 16²,
+# 8² in windows of 8, heads of 24), one float32 case, the small HTS-AT of
+# the graph test (windows of 4, heads of 8) and windows of 7 (49 tokens
+# padded to 64, heads of 40)
+WA_CASES = [(128, 4, 64, False, torch.bfloat16, 8, 24),
+            (128, 4, 64, True, torch.bfloat16, 8, 24),
+            (128, 8, 16, False, torch.bfloat16, 8, 24),
+            (128, 8, 16, True, torch.bfloat16, 8, 24),
+            (128, 16, 4, False, torch.bfloat16, 8, 24),
+            (128, 16, 4, True, torch.bfloat16, 8, 24),
+            (128, 32, 1, False, torch.bfloat16, 8, 24),
+            (8, 4, 16, True, torch.float32, 8, 24),
+            (16, 2, 4, True, torch.bfloat16, 4, 8),
+            (16, 2, 4, True, torch.float32, 4, 8),
+            (8, 3, 4, True, torch.bfloat16, 7, 40)]
+# |got − float64| / (rtol·mag) (wa.mismatch): bf16 rounds P (or dS·scale)
+# and the output once each, 2⁻⁸ apiece; float32 leaves the scores' error,
+# ~d·2⁻²⁴ of |scale·q·k| a row, which exp turns into P's relative error;
+# the table's gradient is a float32 sum over up to 2¹³ windows a head
+WA_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 2 ** -14}
+WA_TABLE_RTOL = 2 ** -12
+
+
+def _wa_inputs(batch, heads, nw, shifted, dtype, win, d, dev, seed=0):
+    """q, k, v as ``WindowAttention.forward`` views them in the ``qkv``
+    output, a bias table with a trained table's spread, the rel index, the
+    shift mask (or None), dO and the scale."""
+    from sound_event_detection_dcase2017_task4_torch.ops import window_attention as wa
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w, n, c = batch * nw, win * win, heads * d
+    qkv = torch.randn(w, n, 3 * c, generator=g, device=dev).to(dtype)
+    q, k, v = qkv.view(w, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    table = 0.5 * torch.randn((2 * win - 1) ** 2, heads, generator=g, device=dev)
+    res = win * int(round(nw ** 0.5))
+    mask = wa.shift_mask(res, win, win // 2).to(dev) if shifted else None
+    do = torch.randn(w, n, c, generator=g, device=dev).to(dtype)
+    return q, k, v, table, wa.relative_index(win).to(dev), mask, d ** -0.5, do
+
+
+@pytest.mark.parametrize("case", WA_CASES, ids=lambda c: "b{}-h{}-nw{}-{}-{}-w{}-d{}".format(
+    c[0], c[1], c[2], "shift" if c[3] else "plain", str(c[4])[6:], c[5], c[6]))
+def test_window_attention_kernels_match_plain(cuda, case):
+    """o, dq, dk, dv and the table's gradient of the kernels and of the
+    plain version, both against float64 within ``WA_RTOL`` of each
+    element's magnitude (the plain version meets the same tolerance, so it
+    is not looser than the kernels' own rounding); a second backward gives
+    the same bits."""
+    from sound_event_detection_dcase2017_task4_torch.ops import window_attention as wa
+
+    q, k, v, table, index, mask, scale, do = _wa_inputs(*case, cuda)
+    o = wa.forward_cuda(q, k, v, table, index, mask, scale)
+    grads = wa.backward_cuda(q, k, v, table, index, mask, scale, do)
+    torch.cuda.synchronize()
+    assert o.dtype == q.dtype and o.shape == do.shape
+    assert grads[3].dtype == torch.float32 and grads[3].shape == table.shape
+    rtol = WA_RTOL[q.dtype]
+    got = wa.mismatch((o, *grads), q, k, v, table, index, mask, scale, do, rtol,
+                      WA_TABLE_RTOL)
+    o0, p0 = wa.forward_plain(q, k, v, table, index, mask, scale)
+    plain = wa.mismatch((o0, *wa.backward_plain(q, k, v, p0, index, do, scale,
+                                                (table.shape, table.dtype))),
+                        q, k, v, table, index, mask, scale, do, rtol, WA_TABLE_RTOL)
+    del o0, p0
+    assert max(plain.values()) <= 1, plain
+    assert max(got.values()) <= 1, got
+    again = wa.backward_cuda(q, k, v, table, index, mask, scale, do)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+def test_window_attention_graph_replays_eager(cuda):
+    """A forward and backward through autograd captured in a CUDA graph:
+    replayed on new inputs, the same bits as an eager call on them."""
+    from sound_event_detection_dcase2017_task4_torch.ops import window_attention as wa
+
+    def step(qkv, table, do, index, mask, scale, heads, d):
+        w, n, _ = qkv.shape
+        q, k, v = qkv.view(w, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+        o = wa.window_attention(q, k, v, table, index, mask, scale)
+        return (o, *torch.autograd.grad(o, (qkv, table), do))
+
+    args = []
+    for seed in (1, 2):
+        q, k, v, table, index, mask, scale, do = _wa_inputs(
+            8, 4, 16, True, torch.bfloat16, 8, 24, cuda, seed)
+        qkv = q._base.detach().clone()
+        args.append((qkv.requires_grad_(True), table.requires_grad_(True), do))
+    eager = step(*args[1], index, mask, scale, 4, 24)
+    static = [t.detach().clone().requires_grad_(t.requires_grad) for t in args[0]]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(*static, index, mask, scale, 4, 24)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(*static, index, mask, scale, 4, 24)
+    with torch.no_grad():
+        for s, a in zip(static, args[1]):
+            s.copy_(a)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
+
+
+def test_window_attention_counts_its_launches_and_rejects_bad_inputs(cuda):
+    """Through autograd: 1 launch a forward and 3 a backward. Float64, a
+    window of 81 tokens, a head width of 12, a misaligned stride or pointer
+    raise."""
+    from sound_event_detection_dcase2017_task4_torch.ops import window_attention as wa
+
+    q, k, v, table, index, mask, scale, do = _wa_inputs(2, 4, 4, True, torch.bfloat16,
+                                                        8, 24, cuda)
+    before = _launches("window_attention")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, table)]
+    o = wa.window_attention(*leaves, index, mask, scale)
+    assert _launches("window_attention") - before == 1
+    o.backward(do)
+    assert _launches("window_attention") - before == 4
+    assert all(t.grad is not None for t in leaves)
+
+    w = q.shape[0]
+    wide = torch.zeros(w, 64, 3 * 96 + 2, device=cuda, dtype=torch.bfloat16)
+    skew = [t.permute(2, 0, 3, 1, 4).unbind(0) for t in (
+        wide[:, :, :288].view(w, 64, 3, 4, 24),
+        torch.zeros(w * 64 * 288 + 1, device=cuda, dtype=torch.bfloat16)[1:]
+        .view(w, 64, 3, 4, 24))]
+    big = torch.zeros(1, 4, 81, 24, device=cuda, dtype=torch.bfloat16)
+    narrow = torch.zeros(w, 4, 64, 12, device=cuda, dtype=torch.bfloat16)
+    for args, err in (((q.double(), k.double(), v.double()), TypeError),
+                      ((big, big, big), ValueError),
+                      ((narrow, narrow, narrow), ValueError),
+                      (skew[0], ValueError),
+                      (skew[1], ValueError)):
+        with pytest.raises(err):
+            wa.forward_cuda(*args, table, index, mask if args[0].shape[2] == 64 else None,
+                            scale)
+
+
+def test_htsat_core_serves_remat_and_eval_on_the_card(cuda):
+    """A small HTS-AT (windows of 4, heads of 8) in float32 on the card,
+    its core on the kernels: a train step with ``remat`` (each block's
+    attention recomputed in the backward) gives the gradients of one
+    without it, both eager, bit for bit but bn0's, which the time
+    stretch's bicubic backward sums with atomics (rtol 1e-6 there); the
+    eval forward under ``no_grad`` matches the CPU's plain core (a relative
+    norm gap of 5e-5, the CPU tests' bound against the reference)."""
+    import torch.nn.functional as F
+
+    from sound_event_detection_dcase2017_task4_torch.models import HTSAT
+
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(4, 250, 16).astype(np.float32))
+    y = torch.from_numpy((rng.rand(4, 5) < 0.3).astype(np.float32)).to(cuda)
+
+    def build():
+        return HTSAT(classes_num=5, spec_size=64, mel_bins=16, window=4, embed=16,
+                     depths=(2, 2, 2), heads=(2, 4, 8), drop_path=0.5,
+                     generator=torch.Generator().manual_seed(0))
+
+    grads = []
+    for remat in (False, True):
+        model = build().to(cuda)
+        model.remat = remat
+        params = dict(model.named_parameters())
+        before = _launches("window_attention")
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+            out = model(x.to(cuda), train=True,
+                        generator=torch.Generator(device=cuda).manual_seed(3))
+            loss = F.binary_cross_entropy(out["clipwise_output"], y)
+            grads.append(dict(zip(params, torch.autograd.grad(loss, list(params.values())))))
+        torch.cuda.synchronize()
+        # 6 blocks: a forward launch each (twice under remat), 3 backward
+        assert _launches("window_attention") - before == 6 * (4 + remat)
+    for k, g in grads[0].items():
+        if k.startswith("bn0."):
+            torch.testing.assert_close(grads[1][k], g, rtol=1e-6, atol=0, msg=k)
+        else:
+            assert torch.equal(grads[1][k], g), k
+    card, cpu = build().to(cuda).eval(), build().eval()
+    with torch.no_grad():
+        got, want = card(x.to(cuda)), cpu(x)
+    for k in ("clipwise_output", "framewise_output", "embedding"):
+        gap = float((got[k].cpu().double() - want[k].double()).norm()
+                    / want[k].double().norm())
+        assert gap < 5e-5, (k, gap)

@@ -343,3 +343,55 @@ def test_main_train_and_predictor_run_htsat(tmp_path):
     assert out["framewise_output"].shape == (2, cfg.frames_num, 17)
     assert np.isfinite(out["framewise_output"]).all()
     assert len(pred.detect_events(wave)) == 2
+
+
+def _core_inputs(dtype, win, heads, d, batch=2, seed=7):
+    """q, k, v as views of a ``qkv`` output, a table, the rel index, a
+    shift mask over a grid of 2 × 2 windows, dO and the scale."""
+    g = torch.Generator().manual_seed(seed)
+    nw, n, c = 4, win * win, heads * d
+    qkv = torch.randn(batch * nw, n, 3 * c, generator=g).to(dtype)
+    q, k, v = qkv.view(batch * nw, n, 3, heads, d).permute(2, 0, 3, 1, 4).unbind(0)
+    table = 0.5 * torch.randn((2 * win - 1) ** 2, heads, generator=g)
+    do = torch.randn(batch * nw, n, c, generator=g).to(dtype)
+    return (q, k, v, table, wa.relative_index(win), wa.shift_mask(2 * win, win, win // 2),
+            d ** -0.5, do)
+
+
+@pytest.mark.parametrize("dtype,win,heads,d", [(torch.bfloat16, 8, 4, 24),
+                                               (torch.float32, 8, 4, 24),
+                                               (torch.bfloat16, 4, 2, 8)])
+def test_window_attention_yardstick_passes_the_plain_version_and_catches_faults(
+        dtype, win, heads, d):
+    """``mismatch`` (the card tests' and ``chip_smoke.py``'s yardstick of
+    the kernels) at the card tests' tolerances: the plain version within
+    them, and a dropped window of ``o``, a ``dq`` without the scale, and a
+    table gradient short of one window's share each beyond them."""
+    rtol = {torch.bfloat16: 2 ** -7, torch.float32: 2 ** -14}[dtype]
+    q, k, v, table, index, mask, scale, do = _core_inputs(dtype, win, heads, d)
+    o, p = wa.forward_plain(q, k, v, table, index, mask, scale)
+    dq, dk, dv, dtable = wa.backward_plain(q, k, v, p, index, do, scale,
+                                           (table.shape, table.dtype))
+    args = (q, k, v, table, index, mask, scale, do, rtol, 2 ** -12)
+    assert max(wa.mismatch((o, dq, dk, dv, dtable), *args).values()) <= 1
+    bad_o = o.clone()
+    bad_o[0] = 0
+    assert wa.mismatch((bad_o, dq, dk, dv, dtable), *args)["o"] > 1
+    assert wa.mismatch((o, dq / scale, dk, dv, dtable), *args)["dq"] > 1
+    short = dtable * (1 - 1 / q.shape[0])
+    assert wa.mismatch((o, dq, dk, dv, short), *args)["dtable"] > 1
+
+
+def test_window_attention_kernels_refuse_cpu_tensors_and_count_no_launch():
+    """The kernels' entries raise on CPU tensors before any build; a CPU
+    call takes the plain version and moves no launch counter."""
+    q, k, v, table, index, mask, scale, do = _core_inputs(torch.float32, 4, 2, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        wa.forward_cuda(q, k, v, table, index, mask, scale)
+    with pytest.raises(ValueError, match="CUDA"):
+        wa.backward_cuda(q, k, v, table, index, mask, scale, do)
+    before = trace.counters().get("ops.window_attention.launches", 0)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v, table)]
+    wa.window_attention(*leaves, index, mask, scale).backward(do)
+    assert trace.counters().get("ops.window_attention.launches", 0) == before
+    assert all(t.grad is not None for t in leaves)
