@@ -362,10 +362,10 @@ def phase_device(torch):
 
 def phase_build(logmel_cuda, cfg):
     t0 = time.perf_counter()
-    lib = logmel_cuda.build()
+    lib = logmel_cuda.LIBRARY.load()
     secs = time.perf_counter() - t0
     print(f"[build] ops/csrc/logmel.cu for sm_90a in {secs:.2f} s")
-    for line in (logmel_cuda.BUILD_LOG or "").splitlines():
+    for line in (logmel_cuda.LIBRARY.log or "").splitlines():
         if any(s in line for s in ("registers", "spill", "error", "smem")):
             print(f"[build] {line.strip()}")
     # dynamic shared memory is not in ptxas's report: the library's layout
@@ -635,8 +635,8 @@ def phase_bn_act(torch, card):
     from sound_event_detection_dcase2017_task4_torch.ops import bn_act
 
     t0 = time.perf_counter()
-    bn_act.build()
-    log = bn_act.BUILD_LOG or ""
+    bn_act.LIBRARY.load()
+    log = bn_act.LIBRARY.log or ""
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(n) > 0 for n in re.findall(r"(\d+) bytes spill stores", log))
     print(f"[bn_act] ops/csrc/bn_act.cu for sm_90a in {time.perf_counter() - t0:.2f} s; "
@@ -800,8 +800,8 @@ def phase_window_attention(torch, card):
     from sound_event_detection_dcase2017_task4_torch.ops import window_attention as wa
 
     t0 = time.perf_counter()
-    wa.build()
-    log = wa.BUILD_LOG or ""
+    wa.LIBRARY.load()
+    log = wa.LIBRARY.log or ""
     regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(n) > 0 for n in re.findall(r"(\d+) bytes spill stores", log))
     print(f"[window_attention] ops/csrc/window_attention.cu for sm_90a in "

@@ -43,9 +43,10 @@ float32. Linears and the bias tables start from a normal of std 0.02 (the
 authors' ``trunc_normal_``, cut at ±2), their biases at 0, LayerNorms at
 1 / 0, the two convs from PyTorch's default, all from the explicit
 ``generator``. ``remat`` recomputes each block's attention and MLP in the
-backward; the drop-path draws stay outside the recomputed part. In train
-mode on a card the pass and its backward replay as CUDA graphs
-(``models.train_graphs``; :meth:`HTSAT.forward` says when not).
+backward; the drop-path draws stay outside the recomputed part. A train
+forward is :meth:`HTSAT.draw_masks` then :meth:`HTSAT.train_pass`, a pass
+with no draw of its own, which ``models.train_graphs`` captures as CUDA
+graphs for the train step.
 """
 
 from __future__ import annotations
@@ -58,12 +59,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .. import parallel, trace
+from .. import parallel
 from ..config import classes_num as _default_classes
 from ..ops.window_attention import relative_index, shift_mask, window_attention
 from .blocks import (BatchNorm, Dense, drop_path, drop_path_mask, interpolate,
                      pad_framewise_output)
-from .train_graphs import TrainGraphs
 
 __all__ = ["HTSAT", "fold", "unfold"]
 
@@ -236,8 +236,6 @@ class HTSAT(nn.Module):
             raise ValueError(f"{len(depths)} depths for {len(heads)} heads")
         self.classes_num, self.mel_bins, self.dtype = classes_num, mel_bins, dtype
         self.remat = remat
-        self._graphs = TrainGraphs(self, self._graphed_forward)
-        self._drawn: tuple = ()
         self.freq_ratio = spec_size // mel_bins
         self.frames = spec_size * self.freq_ratio       # the stretched clip
         self.bn0 = BatchNorm(mel_bins, dtype=dtype)
@@ -282,41 +280,34 @@ class HTSAT(nn.Module):
                 mesh: parallel.Mesh | None = None) -> dict:
         """``logmel [B, T, mel]`` → the output dict. ``train=True`` takes
         ``bn0``'s batch statistics and draws the drop-path masks from
-        ``generator`` (required then), all of them first, in the blocks'
-        order (a block's attention before its MLP); under a data-parallel
-        ``mesh`` ``logmel`` is this rank's rows, and both are the global
-        batch's. Train mode on a card runs as CUDA graphs
-        (``train_graphs.TrainGraphs``; the outputs are then the graphs'
-        memory, overwritten by the next train call) unless ``remat`` is
-        on, a ``mesh`` is given, ``logmel`` requires a gradient or a
-        profiler records the port's spans (then the pass is eager)."""
-        b, frames, mel = logmel.shape
-        if mel != self.mel_bins or frames > self.frames:
-            raise ValueError(f"HTSAT takes up to {self.frames} frames of "
-                             f"{self.mel_bins} mel bins (got {frames} × {mel})")
-        if not train:
-            return self._forward(logmel, None, False, mesh)
-        masks = [drop_path_mask(b, block.rate, generator, mesh, logmel.device)
-                 for stage in self.layers for block in stage.blocks for _ in range(2)]
-        if not (logmel.is_cuda and mesh is None and not self.remat
-                and not logmel.requires_grad and not trace.recording()):
-            return self._forward(logmel, masks, True, mesh)
-        self._drawn = tuple(m is not None for m in masks)
-        drawn = [m for m in masks if m is not None]
-        out = self._graphs(logmel, *([torch.stack(drawn)] if drawn else []))
-        return dict(zip(("clipwise_output", "framewise_output", "embedding"), out))
+        ``generator`` (required then; :meth:`draw_masks`); under a
+        data-parallel ``mesh`` ``logmel`` is this rank's rows, and both
+        are the global batch's."""
+        masks = (self.draw_masks(logmel.shape[0], generator, mesh, logmel.device)
+                 if train else None)
+        return self._forward(logmel, masks, train, mesh)
 
-    def _graphed_forward(self, logmel: torch.Tensor, *drawn: torch.Tensor) -> tuple:
-        """The train-mode pass that ``TrainGraphs`` captures: the drawn
-        masks stacked ``[draws, B]`` (none where no rate draws)."""
-        rows = iter(drawn[0].unbind(0) if drawn else ())
-        masks = [next(rows) if d else None for d in self._drawn]
-        return tuple(self._forward(logmel, masks, True, None).values())
+    def draw_masks(self, batch: int, generator: torch.Generator | None,
+                   mesh: parallel.Mesh | None = None, device=None) -> list:
+        """The drop-path keep masks of a train pass over ``batch`` rows
+        (``blocks.drop_path_mask``), two a block in the blocks' order (a
+        block's attention before its MLP), ``None`` where a rate draws
+        nothing."""
+        return [drop_path_mask(batch, block.rate, generator, mesh, device)
+                for stage in self.layers for block in stage.blocks for _ in range(2)]
+
+    def train_pass(self, logmel: torch.Tensor, masks: list) -> dict:
+        """The train-mode pass with no mesh under :meth:`draw_masks`'s
+        ``masks``; it draws nothing and reads nothing back."""
+        return self._forward(logmel, masks, True, None)
 
     def _forward(self, logmel: torch.Tensor, masks: list | None, train: bool,
                  mesh: parallel.Mesh | None) -> dict:
         """The pass, with the blocks' drop-path keep masks (two a block)."""
         b, frames, mel = logmel.shape
+        if mel != self.mel_bins or frames > self.frames:
+            raise ValueError(f"HTSAT takes up to {self.frames} frames of "
+                             f"{self.mel_bins} mel bins (got {frames} × {mel})")
         dt = self.dtype
         x = logmel.to(dt).transpose(1, 2)[..., None].contiguous()   # [B, F, T, 1]
         x = self.bn0(x, train, mesh)[..., 0].transpose(1, 2)[:, None]

@@ -9,7 +9,7 @@ for each signature of its inputs (shapes, types, device): its forward, and
 the gradient of its outputs in the module's parameters. A call then
 replays the two graphs, for the cost of a few copies and two launches.
 
-What ``fn`` may do: take tensors and return a tuple of tensors; no host
+What ``fn`` may do: take tensors and return a dict of tensors; no host
 synchronisation, no random draw (draw outside and pass the values in), no
 collective. What it writes in place besides its outputs (BatchNorm's
 running statistics) it writes on every replay, as the eager call would.
@@ -28,10 +28,17 @@ add while they are captured are added again at each replay, and the
 warm-up's are taken back, so a counter reads as it would in eager mode.
 The profiler's spans exist only in eager mode: a caller that wants them
 calls ``fn`` itself.
+
+:func:`train_forward` is the one place that decides whether a train pass
+replays graphs; ``train.make_train_step`` calls it once. A model opts in by
+splitting its train forward in two: ``draw_masks(batch, generator, mesh,
+device)``, its random draws, and ``train_pass(x, masks)``, a pass that
+draws nothing (HTS-AT's drop-path masks and pass).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -40,7 +47,7 @@ from torch.autograd.function import once_differentiable
 
 from .. import trace
 
-__all__ = ["TrainGraphs"]
+__all__ = ["TrainGraphs", "train_forward"]
 
 # eager calls before the capture, on a side stream (lazy initialisation of
 # the libraries and the kernels; the capture may not allocate their state)
@@ -72,7 +79,7 @@ class _Captured:
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(WARMUP):
-                diff = [o for o in fn(*self.inputs) if o.requires_grad]
+                diff = [o for o in fn(*self.inputs).values() if o.requires_grad]
                 torch.autograd.grad(diff, self.params, [torch.ones_like(o) for o in diff],
                                     allow_unused=True)
             del diff
@@ -82,7 +89,8 @@ class _Captured:
         self.fwd, self.bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
         before_fwd = trace.counters()
         with torch.cuda.graph(self.fwd, pool=pool):
-            self.outputs = tuple(fn(*self.inputs))
+            out = fn(*self.inputs)
+        self.keys, self.outputs = tuple(out), tuple(out.values())
         before_bwd = trace.counters()
         self.differentiable = [o.requires_grad for o in self.outputs]
         self.grad_outputs = [torch.empty_like(o) for o in self.outputs if o.requires_grad]
@@ -94,7 +102,7 @@ class _Captured:
         # drop the captured autograd graph: its parameters' accumulators
         # belong to the capture's stream, the replays' to the caller's
         self.outputs = tuple(o.detach() for o in self.outputs)
-        del grads
+        del grads, out
         end = trace.counters()
         with torch.no_grad():
             for b, v in zip(buffers, saved):
@@ -134,7 +142,7 @@ class _Replay(torch.autograd.Function):
 class TrainGraphs:
     """``fn(*inputs)`` of ``module`` (train mode, on a card) through CUDA
     graphs: the module docstring. ``graphs(*inputs)`` returns ``fn``'s
-    outputs, differentiable in the module's parameters."""
+    outputs dict, differentiable in the module's parameters."""
 
     def __init__(self, module: nn.Module, fn: Callable):
         self.module, self.fn = module, fn
@@ -153,4 +161,42 @@ class TrainGraphs:
         cap = self._captured.get(key)
         if cap is None:
             cap = self._captured[key] = _Captured(self.module, self.fn, inputs)
-        return _Replay.apply(cap, *inputs, *cap.params)
+        return dict(zip(cap.keys, _Replay.apply(cap, *inputs, *cap.params)))
+
+
+class _Graphed:
+    """A split model's train forward through :class:`TrainGraphs`: the
+    masks are drawn eagerly and those drawn go in stacked ``[draws, B]``."""
+
+    def __init__(self, model: nn.Module):
+        self.model = model
+        # which draws exist, a constant of the model's rates: read off a
+        # draw of no rows
+        self.pattern = tuple(m is not None
+                             for m in model.draw_masks(0, torch.Generator()))
+        self.graphs = TrainGraphs(model, self._pass)
+
+    def _pass(self, x: torch.Tensor, *drawn: torch.Tensor) -> dict:
+        rows = iter(drawn[0].unbind(0) if drawn else ())
+        return self.model.train_pass(x, [next(rows) if d else None
+                                         for d in self.pattern])
+
+    def __call__(self, x: torch.Tensor, generator: torch.Generator) -> dict:
+        if not x.is_cuda or trace.recording():
+            return self.model(x, train=True, generator=generator)
+        drawn = [m for m in self.model.draw_masks(x.shape[0], generator,
+                                                  None, x.device) if m is not None]
+        return self.graphs(x, *([torch.stack(drawn)] if drawn else []))
+
+
+def train_forward(model: nn.Module, mesh=None) -> Callable:
+    """The train step's forward, ``forward(x, generator=g)`` → ``model``'s
+    outputs dict. CUDA graphs for a model with ``draw_masks`` and
+    ``train_pass``, no ``mesh`` and ``remat`` off, on calls whose ``x`` is
+    on a card while no profiler records (the port's spans exist only
+    eagerly; the outputs are then the graphs' memory, overwritten by the
+    next call); else ``model(x, train=True, generator=g, mesh=mesh)``."""
+    if (mesh is None and not getattr(model, "remat", False)
+            and hasattr(model, "draw_masks") and hasattr(model, "train_pass")):
+        return _Graphed(model)
+    return functools.partial(model, train=True, mesh=mesh)

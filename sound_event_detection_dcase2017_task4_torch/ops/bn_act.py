@@ -40,14 +40,13 @@ partials by asking the library.
 
 Each kernel launch adds to the counter ``ops.bn_act.launches``; the forward
 launches run inside the span ``sedx.ops.bn_act``. The library is built with
-``nvcc`` at first use (``ops/nvcc.py``); importing this module needs
-neither ``nvcc`` nor a GPU.
+``nvcc`` at first use (:data:`LIBRARY`, an ``nvcc.Library``); importing this
+module needs neither ``nvcc`` nor a GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 from pathlib import Path
 
 import torch
@@ -57,50 +56,29 @@ from torch.autograd.function import once_differentiable
 from .. import trace
 from . import nvcc
 
-__all__ = ["ACTS", "Link", "apply_cuda", "apply_plain", "batch_apply",
-           "batch_sums", "build", "grad_stats_cuda", "grad_stats_plain",
+__all__ = ["ACTS", "LIBRARY", "Link", "apply_cuda", "apply_plain", "batch_apply",
+           "batch_sums", "grad_stats_cuda", "grad_stats_plain",
            "grad_x_cuda", "grad_x_mismatch", "grad_x_plain", "least_bytes",
            "stats_cuda", "stats_plain", "sums_grad"]
 
 SOURCE = Path(__file__).parent / "csrc" / "bn_act.cu"
-BUILD_DIR = nvcc.BUILD_DIR
 ACTS = ("none", "relu", "relu_pool")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the library's code for a tensor too large for its int unit index
 _ERR_UNITS = -2
 
-#: nvcc's output (``-Xptxas -v``) of the build this process loaded, or
-#: ``None`` before the first build.
-BUILD_LOG: str | None = None
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def build():
-    """Compile ``csrc/bn_act.cu`` for ``sm_90a`` (once per source version)
-    and load it. Raises on any compiler or loader failure."""
-    global _lib, BUILD_LOG
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib, log = nvcc.build_library(SOURCE, "bn_act", build_dir=BUILD_DIR)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        shape = [ci] * 4          # B, C, T, F
-        lib.sedx_bn_partials.argtypes = [*shape, ci, ci, ci]
-        lib.sedx_bn_stats.argtypes = [vp, ci, ci, *shape, vp, vp, vp]
-        lib.sedx_bn_apply.argtypes = [vp, ci, ci, ci, vp, vp, *shape, vp, vp]
-        lib.sedx_bn_grad_stats.argtypes = [vp, vp, ci, ci, ci, vp, vp, *shape,
-                                           vp, vp, vp]
-        lib.sedx_bn_grad_x.argtypes = [vp, vp, ci, ci, ci, vp, vp, vp, *shape,
-                                       vp, vp]
-        for fn in ("sedx_bn_partials", "sedx_bn_stats", "sedx_bn_apply",
-                   "sedx_bn_grad_stats", "sedx_bn_grad_x"):
-            getattr(lib, fn).restype = ci
-        lib.sedx_bn_error_string.argtypes = [ci]
-        lib.sedx_bn_error_string.restype = ctypes.c_char_p
-        _lib, BUILD_LOG = lib, log
-        return lib
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_SHAPE = [_ci] * 4          # B, C, T, F
+#: ``csrc/bn_act.cu``, built at first use (:class:`nvcc.Library`).
+LIBRARY = nvcc.Library(SOURCE, "bn_act", {
+    "sedx_bn_partials": (_ci, [*_SHAPE, _ci, _ci, _ci]),
+    "sedx_bn_stats": (_ci, [_vp, _ci, _ci, *_SHAPE, _vp, _vp, _vp]),
+    "sedx_bn_apply": (_ci, [_vp, _ci, _ci, _ci, _vp, _vp, *_SHAPE, _vp, _vp]),
+    "sedx_bn_grad_stats": (_ci, [_vp, _vp, _ci, _ci, _ci, _vp, _vp, *_SHAPE,
+                                 _vp, _vp, _vp]),
+    "sedx_bn_grad_x": (_ci, [_vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp, *_SHAPE,
+                             _vp, _vp])},
+    "sedx_bn_error_string")
 
 
 # ---------------------------------------------------------------------------
@@ -291,21 +269,15 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _call(lib, x, n: int, entry: str, *args) -> int:
-    """``lib.<entry>(*args)``: raises on a negative code, and on any other
+def _check(rc: int, x, n: int, entry: str) -> int:
+    """``rc`` of ``entry``: raises on a negative code, and on any other
     non-zero one of an entry that launches ``n`` > 0 kernels, which it adds
     to ``ops.bn_act.launches``."""
-    rc = getattr(lib, entry)(*args)
     if rc == _ERR_UNITS:
         raise ValueError(f"{tuple(x.shape)} is too large for the bn_act "
                          "kernels' int unit index")
     if rc < 0 or n and rc:
-        msg = lib.sedx_bn_error_string(rc).decode()
-        raise RuntimeError(f"bn_act {entry} failed: {msg} ({rc})")
+        raise LIBRARY.error(rc, f"bn_act {entry}")
     if n:
         trace.count("ops.bn_act.launches", n)
     return rc
@@ -313,8 +285,8 @@ def _call(lib, x, n: int, entry: str, *args) -> int:
 
 def _partials(lib, x, act, aligned):
     """Scratch for the per-block partials of K1 (``act`` ``"none"``) or K3."""
-    n = _call(lib, x, 0, "sedx_bn_partials", *x.shape, _DTYPES[x.dtype],
-              ACTS.index(act), aligned)
+    n = _check(lib.sedx_bn_partials(*x.shape, _DTYPES[x.dtype], ACTS.index(act),
+                                    aligned), x, 0, "sedx_bn_partials")
     return torch.empty((x.shape[1], n, 2), dtype=torch.float32,
                        device=x.device)
 
@@ -322,13 +294,14 @@ def _partials(lib, x, act, aligned):
 def stats_cuda(x: torch.Tensor) -> torch.Tensor:
     """K1 and the combine: ``[Σx, Σx²]`` float32 ``[2C]``."""
     _check_x(x, "none")
-    lib = build()
+    lib = LIBRARY.load()
     aligned = _aligned(x)
     with trace.span("sedx.ops.bn_act"), torch.cuda.device(x.device):
         part = _partials(lib, x, "none", aligned)
         out = torch.empty(2 * x.shape[1], dtype=torch.float32, device=x.device)
-        _call(lib, x, 2, "sedx_bn_stats", x.data_ptr(), _DTYPES[x.dtype],
-              aligned, *x.shape, part.data_ptr(), out.data_ptr(), _stream(x))
+        _check(lib.sedx_bn_stats(x.data_ptr(), _DTYPES[x.dtype], aligned,
+                                 *x.shape, part.data_ptr(), out.data_ptr(),
+                                 nvcc.stream(x)), x, 2, "sedx_bn_stats")
     return out
 
 
@@ -337,12 +310,13 @@ def apply_cuda(x, a, b, act: str) -> torch.Tensor:
     _check_x(x, act)
     _check_vec(a, x.shape[1], x, "a")
     _check_vec(b, x.shape[1], x, "b")
-    lib = build()
+    lib = LIBRARY.load()
     with trace.span("sedx.ops.bn_act"), torch.cuda.device(x.device):
         y = torch.empty(_out_shape(x, act), dtype=x.dtype, device=x.device)
-        _call(lib, x, 1, "sedx_bn_apply", x.data_ptr(), _DTYPES[x.dtype],
-              ACTS.index(act), _aligned(x, y), a.data_ptr(), b.data_ptr(),
-              *x.shape, y.data_ptr(), _stream(x))
+        _check(lib.sedx_bn_apply(x.data_ptr(), _DTYPES[x.dtype], ACTS.index(act),
+                                 _aligned(x, y), a.data_ptr(), b.data_ptr(),
+                                 *x.shape, y.data_ptr(), nvcc.stream(x)),
+               x, 1, "sedx_bn_apply")
     return y
 
 
@@ -352,15 +326,16 @@ def grad_stats_cuda(dy, x, a, b, act: str) -> torch.Tensor:
     _check_same(dy, x, _out_shape(x, act), "dy")
     _check_vec(a, x.shape[1], x, "a")
     _check_vec(b, x.shape[1], x, "b")
-    lib = build()
+    lib = LIBRARY.load()
     aligned = _aligned(x, dy)
     with torch.cuda.device(x.device):
         part = _partials(lib, x, act, aligned)
         out = torch.empty(2 * x.shape[1], dtype=torch.float32, device=x.device)
-        _call(lib, x, 2, "sedx_bn_grad_stats", dy.data_ptr(), x.data_ptr(),
-              _DTYPES[x.dtype], ACTS.index(act), aligned, a.data_ptr(),
-              b.data_ptr(), *x.shape, part.data_ptr(), out.data_ptr(),
-              _stream(x))
+        _check(lib.sedx_bn_grad_stats(dy.data_ptr(), x.data_ptr(), _DTYPES[x.dtype],
+                                      ACTS.index(act), aligned, a.data_ptr(),
+                                      b.data_ptr(), *x.shape, part.data_ptr(),
+                                      out.data_ptr(), nvcc.stream(x)),
+               x, 2, "sedx_bn_grad_stats")
     return out
 
 
@@ -372,15 +347,16 @@ def grad_x_cuda(dy, x, a, b, gs, act: str) -> torch.Tensor:
     _check_vec(a, x.shape[1], x, "a")
     _check_vec(b, x.shape[1], x, "b")
     _check_vec(gs, 2 * x.shape[1], x, "gs")
-    lib = build()
+    lib = LIBRARY.load()
     t, f = x.shape[2:]
     tail = act == "relu_pool" and (t % 2 or f % 2)
     with torch.cuda.device(x.device):
         dx = torch.empty_like(x)
-        _call(lib, x, 2 if tail else 1, "sedx_bn_grad_x", dy.data_ptr(),
-              x.data_ptr(), _DTYPES[x.dtype], ACTS.index(act),
-              _aligned(x, dy, dx), a.data_ptr(), b.data_ptr(), gs.data_ptr(),
-              *x.shape, dx.data_ptr(), _stream(x))
+        _check(lib.sedx_bn_grad_x(dy.data_ptr(), x.data_ptr(), _DTYPES[x.dtype],
+                                  ACTS.index(act), _aligned(x, dy, dx),
+                                  a.data_ptr(), b.data_ptr(), gs.data_ptr(),
+                                  *x.shape, dx.data_ptr(), nvcc.stream(x)),
+               x, 2 if tail else 1, "sedx_bn_grad_x")
     return dx
 
 

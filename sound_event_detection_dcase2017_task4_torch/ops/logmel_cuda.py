@@ -21,9 +21,10 @@ or ``ops.logmel_bank.launches`` (bank entry) of the port's ``trace`` module,
 and runs inside the span ``sedx.ops.logmel`` or ``sedx.ops.logmel_bank``
 (the index copy, the launch and the ``top_db`` clamp).
 
-The kernel is built at first use with ``nvcc`` into ``ops/_build/`` (listed in
-``.gitignore``) and bound with ``ctypes``; importing this module needs neither
-``nvcc`` nor a GPU.
+The kernel is built at first use with ``nvcc`` (:data:`LIBRARY`, an
+``nvcc.Library``), which checks the block constants of the loaded library
+against this module's; importing this module needs neither ``nvcc`` nor a
+GPU.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import threading
 from pathlib import Path
 
 import numpy as np
@@ -42,13 +42,11 @@ from ..config import Config, DEFAULT
 from . import dsp, nvcc
 from .stft import _geometry, check_bank, pad_center
 
-__all__ = ["Plan", "build", "check_window",
+__all__ = ["LIBRARY", "Plan", "check_window",
            "flops_and_bytes", "logmel_cuda", "logmel_cuda_bank", "plan",
            "shared_bytes"]
 
 SOURCE = Path(__file__).parent / "csrc" / "logmel.cu"
-BUILD_DIR = nvcc.BUILD_DIR
-NVCC_FLAGS = nvcc.FLAGS
 
 # Block shape of csrc/logmel.cu (checked against the library at load):
 # frames per block, threads per frame, frames in flight per block.
@@ -61,46 +59,28 @@ _POW2_RADICES = (8, 4, 2)
 # Shared memory a block may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232448
 
-#: nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of the
-#: build this process loaded, or ``None`` before the first build.
-BUILD_LOG: str | None = None
-
-_lib = None
-_lib_lock = threading.Lock()
+_CONSTS = ("sedx_logmel_frames_per_block", "sedx_logmel_threads_per_frame",
+           "sedx_logmel_frames_in_flight")
 
 
-def build():
-    """Compile ``csrc/logmel.cu`` for ``sm_90a`` (once per source version)
-    and load it. Raises on any compiler or loader failure."""
-    global _lib, BUILD_LOG
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib, log = nvcc.build_library(SOURCE, "logmel", NVCC_FLAGS, BUILD_DIR)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        sizes = [ci] * 9          # rows, frames, win, hop, stages, tw, used, w, mel
-        lib.sedx_logmel_launch.argtypes = [vp, vp, vp, vp, ci, *sizes, cf, cf, vp]
-        lib.sedx_logmel_launch.restype = ci
-        lib.sedx_logmel_bank_launch.argtypes = [vp, ci, vp, vp, vp, vp, ci,
-                                                *sizes, cf, cf, vp]
-        lib.sedx_logmel_bank_launch.restype = ci
-        lib.sedx_logmel_shared_bytes.argtypes = [ci] * 7
-        lib.sedx_logmel_shared_bytes.restype = ci
-        lib.sedx_logmel_blocks_per_sm.argtypes = [ci] * 8
-        lib.sedx_logmel_blocks_per_sm.restype = ci
-        lib.sedx_cuda_error_string.argtypes = [ci]
-        lib.sedx_cuda_error_string.restype = ctypes.c_char_p
-        consts = ("sedx_logmel_frames_per_block", "sedx_logmel_threads_per_frame",
-                  "sedx_logmel_frames_in_flight")
-        for fn in consts:
-            getattr(lib, fn).argtypes = []
-            getattr(lib, fn).restype = ci
-        got = tuple(getattr(lib, fn)() for fn in consts)
-        if got != (FRAMES_PER_BLOCK, THREADS_PER_FRAME, FRAMES_IN_FLIGHT):
-            raise RuntimeError(f"{so_path.name}: block constants {got} do not "
-                               "match ops/logmel_cuda.py")
-        _lib, BUILD_LOG = lib, log
-        return lib
+def _check_consts(lib) -> None:
+    got = tuple(getattr(lib, fn)() for fn in _CONSTS)
+    if got != (FRAMES_PER_BLOCK, THREADS_PER_FRAME, FRAMES_IN_FLIGHT):
+        raise RuntimeError(f"{Path(lib._name).name}: block constants {got} do "
+                           "not match ops/logmel_cuda.py")
+
+
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIZES = [_ci] * 9      # rows, frames, win, hop, stages, tw, used, w, mel
+#: ``csrc/logmel.cu``, built at first use (:class:`nvcc.Library`).
+LIBRARY = nvcc.Library(SOURCE, "logmel", {
+    "sedx_logmel_launch": (_ci, [_vp, _vp, _vp, _vp, _ci, *_SIZES, _cf, _cf, _vp]),
+    "sedx_logmel_bank_launch": (_ci, [_vp, _ci, _vp, _vp, _vp, _vp, _ci,
+                                      *_SIZES, _cf, _cf, _vp]),
+    "sedx_logmel_shared_bytes": (_ci, [_ci] * 7),
+    "sedx_logmel_blocks_per_sm": (_ci, [_ci] * 8),
+    **{fn: (_ci, []) for fn in _CONSTS}},
+    "sedx_cuda_error_string", _check_consts)
 
 
 def check_window(cfg: Config) -> None:
@@ -281,12 +261,6 @@ def _top_db(out: torch.Tensor, cfg: Config) -> torch.Tensor:
     return torch.maximum(out, peak - cfg.log_top_db)
 
 
-def _check_launch(lib, rc: int) -> None:
-    if rc != 0:
-        msg = lib.sedx_cuda_error_string(rc).decode()
-        raise RuntimeError(f"log-mel kernel launch failed: {msg} ({rc})")
-
-
 def logmel_cuda(waveform: torch.Tensor, cfg: Config = DEFAULT) -> torch.Tensor:
     """The kernel: ``[B, samples] f32 (CUDA, contiguous) → [B, frames, mel]``.
 
@@ -315,19 +289,19 @@ def logmel_cuda(waveform: torch.Tensor, cfg: Config = DEFAULT) -> torch.Tensor:
     if bsz == 0:
         return waveform.new_empty((0, n_frames, cfg.mel_bins))
     plan_f, plan_i = _device_plan(cfg, waveform.device)
-    lib = build()
+    lib = LIBRARY.load()
     with trace.span("sedx.ops.logmel"):
         xpad = pad_center(waveform, pad, cfg.pad_mode).contiguous()
         out = torch.empty((bsz, n_frames, cfg.mel_bins), dtype=torch.float32,
                           device=waveform.device)
         with torch.cuda.device(waveform.device):
-            stream = torch.cuda.current_stream(waveform.device).cuda_stream
             rc = lib.sedx_logmel_launch(
                 xpad.data_ptr(), plan_f.data_ptr(), plan_i.data_ptr(),
                 out.data_ptr(), bsz, xpad.shape[1], n_frames,
                 *_launch_sizes(plan(cfg), cfg), cfg.log_amin, _ref_db(cfg),
-                stream)
-        _check_launch(lib, rc)
+                nvcc.stream(waveform))
+        if rc:
+            raise LIBRARY.error(rc, "log-mel kernel launch")
         trace.count("ops.logmel.launches")
         return _top_db(out, cfg)
 
@@ -382,7 +356,7 @@ def logmel_cuda_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
         return torch.empty((0, n_frames, cfg.mel_bins), device=bank.device)
     scale = 1.0 if bank.dtype == torch.float32 else float(wave_scale)
     plan_f, plan_i = _device_plan(cfg, bank.device, scale)
-    lib = build()
+    lib = LIBRARY.load()
     with trace.span("sedx.ops.logmel_bank"):
         dev_index = None
         if index is not None:
@@ -391,15 +365,15 @@ def logmel_cuda_bank(bank: torch.Tensor, idx, cfg: Config = DEFAULT,
         out = torch.empty((bsz, n_frames, cfg.mel_bins), dtype=torch.float32,
                           device=bank.device)
         with torch.cuda.device(bank.device):
-            stream = torch.cuda.current_stream(bank.device).cuda_stream
             rc = lib.sedx_logmel_bank_launch(
                 bank.data_ptr(), bank.element_size(),
                 None if dev_index is None else dev_index.data_ptr(),
                 plan_f.data_ptr(), plan_i.data_ptr(), out.data_ptr(), bsz,
                 bank.shape[1] * bank.shape[2], n_frames,
                 *_launch_sizes(plan(cfg), cfg), cfg.log_amin, _ref_db(cfg),
-                stream)
-        _check_launch(lib, rc)
+                nvcc.stream(bank))
+        if rc:
+            raise LIBRARY.error(rc, "log-mel kernel launch")
         trace.count("ops.logmel_bank.launches")
         return _top_db(out, cfg)
 

@@ -48,15 +48,14 @@ thread). Counters: ``ops.window_attention.calls`` (forwards),
 ``ops.window_attention.shifted_calls`` (forwards with a mask) and, on a
 card only, ``ops.window_attention.launches`` (kernel launches: 1 a forward,
 3 a backward). The library is built with ``nvcc`` at first use
-(``ops/nvcc.py``), apart from ``bn_act``'s; importing this module needs
-neither ``nvcc`` nor a GPU.
+(:data:`LIBRARY`, an ``nvcc.Library``), apart from ``bn_act``'s; importing
+this module needs neither ``nvcc`` nor a GPU.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from pathlib import Path
 
 import torch
@@ -65,7 +64,7 @@ from torch.autograd.function import once_differentiable
 from .. import trace
 from . import nvcc
 
-__all__ = ["backward_cuda", "backward_plain", "build", "forward_cuda",
+__all__ = ["LIBRARY", "backward_cuda", "backward_plain", "forward_cuda",
            "forward_plain", "mismatch", "relative_index", "shift_mask",
            "window_attention"]
 
@@ -73,37 +72,18 @@ SOURCE = Path(__file__).parent / "csrc" / "window_attention.cu"
 MAX_TOKENS = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: nvcc's output (``-Xptxas -v``) of the build this process loaded, or
-#: ``None`` before the first build.
-BUILD_LOG: str | None = None
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def build():
-    """Compile ``csrc/window_attention.cu`` for ``sm_90a`` (once per source
-    version) and load it. Raises on any compiler or loader failure."""
-    global _lib, BUILD_LOG
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        lib, log = nvcc.build_library(SOURCE, "window_attention")
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        st = [ctypes.POINTER(ctypes.c_longlong)] * 3      # strides (w, h, n)
-        shape = [ci] * 5                                  # W, H, N, d, nW
-        lib.sedx_wa_partials.argtypes = [*shape, ci]
-        lib.sedx_wa_forward.argtypes = [vp, vp, vp, ci, *st, vp, vp, vp, *shape,
-                                        cf, vp, vp]
-        lib.sedx_wa_backward.argtypes = [vp, vp, vp, vp, ci, *st, vp, vp, vp,
-                                         *shape, ci, cf, vp, vp, vp, *st, vp, vp,
-                                         vp]
-        for fn in ("sedx_wa_partials", "sedx_wa_forward", "sedx_wa_backward"):
-            getattr(lib, fn).restype = ci
-        lib.sedx_wa_error_string.argtypes = [ci]
-        lib.sedx_wa_error_string.restype = ctypes.c_char_p
-        _lib, BUILD_LOG = lib, log
-        return lib
+_vp, _ci, _cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ST = [ctypes.POINTER(ctypes.c_longlong)] * 3      # strides (w, h, n)
+_SHAPE = [_ci] * 5                                 # W, H, N, d, nW
+#: ``csrc/window_attention.cu``, built at first use (:class:`nvcc.Library`).
+LIBRARY = nvcc.Library(SOURCE, "window_attention", {
+    "sedx_wa_partials": (_ci, [*_SHAPE, _ci]),
+    "sedx_wa_forward": (_ci, [_vp, _vp, _vp, _ci, *_ST, _vp, _vp, _vp, *_SHAPE,
+                              _cf, _vp, _vp]),
+    "sedx_wa_backward": (_ci, [_vp, _vp, _vp, _vp, _ci, *_ST, _vp, _vp, _vp,
+                               *_SHAPE, _ci, _cf, _vp, _vp, _vp, *_ST, _vp, _vp,
+                               _vp])},
+    "sedx_wa_error_string")
 
 
 def relative_index(window: int) -> torch.Tensor:
@@ -241,25 +221,15 @@ def _strides(t: torch.Tensor):
     return (ctypes.c_longlong * 3)(*t.stride()[:3])
 
 
-def _stream(x):
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _raise(lib, entry: str, rc: int) -> None:
-    if rc:
-        msg = lib.sedx_wa_error_string(rc).decode()
-        raise RuntimeError(f"window attention {entry} failed: {msg} ({rc})")
-
-
 @functools.lru_cache(maxsize=None)
 def _partials(w: int, h: int, n: int, d: int, nw: int, dtype: int) -> int:
     """The partials of ``Σ dS`` a head that the backward writes at this
     shape: the library's cut, which follows the card's occupancy, asked
     once a shape."""
-    lib = build()
-    parts = lib.sedx_wa_partials(w, h, n, d, nw, dtype)
+    parts = LIBRARY.load().sedx_wa_partials(w, h, n, d, nw, dtype)
     if parts < 0:   # the library's code, or a CUDA error's negated
-        _raise(lib, "partials", parts if parts == -1 else -parts)
+        raise LIBRARY.error(parts if parts == -1 else -parts,
+                            "window attention partials")
     return parts
 
 
@@ -267,15 +237,17 @@ def forward_cuda(q, k, v, bias_table, rel_index, mask, scale: float) -> torch.Te
     """The forward kernel: ``o [W, N, H·d]`` in q's dtype."""
     _check(q, k, v, bias_table, rel_index, mask)
     w, h, n, d = q.shape
-    lib = build()
+    lib = LIBRARY.load()
     nw = 1 if mask is None else mask.shape[0]
     with torch.cuda.device(q.device):
         o = torch.empty((w, n, h * d), dtype=q.dtype, device=q.device)
-        _raise(lib, "forward", lib.sedx_wa_forward(
+        rc = lib.sedx_wa_forward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _DTYPES[q.dtype],
             _strides(q), _strides(k), _strides(v), bias_table.data_ptr(),
             rel_index.data_ptr(), None if mask is None else mask.data_ptr(),
-            w, h, n, d, nw, scale, o.data_ptr(), _stream(q)))
+            w, h, n, d, nw, scale, o.data_ptr(), nvcc.stream(q))
+        if rc:
+            raise LIBRARY.error(rc, "window attention forward")
     trace.count("ops.window_attention.launches")
     return o
 
@@ -291,7 +263,7 @@ def backward_cuda(q, k, v, bias_table, rel_index, mask, scale: float, do):
     do = do.contiguous()
     if do.data_ptr() % 16:
         raise ValueError("dO needs a 16-byte aligned pointer")
-    lib = build()
+    lib = LIBRARY.load()
     nw = 1 if mask is None else mask.shape[0]
     with torch.cuda.device(q.device):
         parts = _partials(w, h, n, d, nw, _DTYPES[q.dtype])
@@ -300,14 +272,16 @@ def backward_cuda(q, k, v, bias_table, rel_index, mask, scale: float, do):
         dq, dk, dv = (torch.empty_like(q, memory_format=torch.contiguous_format)
                       for _ in range(3))
         dtable = torch.empty_like(bias_table)
-        _raise(lib, "backward", lib.sedx_wa_backward(
+        rc = lib.sedx_wa_backward(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             _DTYPES[q.dtype], _strides(q), _strides(k), _strides(v),
             bias_table.data_ptr(), rel_index.data_ptr(),
             None if mask is None else mask.data_ptr(), w, h, n, d, nw,
             bias_table.shape[0], scale, dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _strides(dq), _strides(dk), _strides(dv),
-            scratch.data_ptr(), dtable.data_ptr(), _stream(q)))
+            scratch.data_ptr(), dtable.data_ptr(), nvcc.stream(q))
+        if rc:
+            raise LIBRARY.error(rc, "window attention backward")
     trace.count("ops.window_attention.launches", 3)
     return dq, dk, dv, dtable
 

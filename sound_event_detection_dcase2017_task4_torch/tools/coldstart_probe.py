@@ -6,7 +6,7 @@ apart:
 
 * ``import_s`` — interpreter start to torch and the port imported;
 * ``device_s`` — the first CUDA context and allocation;
-* ``kernel_build_s`` — the kernel cells' ``ops.logmel_cuda.build()``: nvcc
+* ``kernel_build_s`` — the kernel cells' ``ops.logmel_cuda.LIBRARY.load()``: nvcc
   and the load in a cold cell, the load of the library an earlier process
   built in a warm one (``None`` in the plain cells);
 * ``build_s`` — model, train state and frontend;
@@ -20,10 +20,11 @@ Cells: {warm, cold} × {kernel, plain}. The step is the bench step's model
 (``Cnn_9layers_Gru_FrameAtt``, bf16, batch 128, mean −30 / std 15) fed
 float waveforms from the host: the waveform kernel in the kernel cells,
 the plain PyTorch frontend in the plain cells (the route ``--no_pallas``
-takes, ``main._frontends``). "Cold" points ``ops.logmel_cuda.BUILD_DIR``
-and ``ops.bn_act.BUILD_DIR`` at a new temporary directory before the first
-use, so the kernels are built with nvcc in the cell; "warm" uses the
-package's build directory, where the parent built the libraries first.
+takes, ``main._frontends``). "Cold" points ``ops.nvcc.BUILD_DIR``, the one
+build directory of the hand-written libraries, at a new temporary directory
+before the first use and restores it after, so the kernels are built with
+nvcc in the cell; "warm" uses the package's build directory, where the
+parent built the libraries first.
 
 Usage (one JSON line per cell, with the card's name and power limit)::
 
@@ -62,7 +63,7 @@ def run_cell(cell: str, device=None, batch: int = BATCH) -> dict:
     from ..config import DEFAULT as cfg
     from ..main import _frontends
     from ..models import get_model
-    from ..ops import bn_act, logmel_cuda
+    from ..ops import logmel_cuda, nvcc
     import_s = time.perf_counter() - t_start
 
     dev = resolve_device(device)
@@ -75,15 +76,14 @@ def run_cell(cell: str, device=None, batch: int = BATCH) -> dict:
         torch.cuda.synchronize(dev)
     device_s = time.perf_counter() - t0
 
-    cold_dir = None
+    cold_dir, build_dir = None, nvcc.BUILD_DIR
     if cell.startswith("cold"):
-        cold_dir = Path(tempfile.mkdtemp(prefix="sedx_coldbuild_"))
-        logmel_cuda.BUILD_DIR = bn_act.BUILD_DIR = cold_dir
+        cold_dir = nvcc.BUILD_DIR = Path(tempfile.mkdtemp(prefix="sedx_coldbuild_"))
     try:
         kernel_build_s = None
         if kernel:
             t0 = time.perf_counter()
-            logmel_cuda.build()
+            logmel_cuda.LIBRARY.load()
             kernel_build_s = time.perf_counter() - t0
 
         t0 = time.perf_counter()
@@ -109,6 +109,7 @@ def run_cell(cell: str, device=None, batch: int = BATCH) -> dict:
         float(step(xb, yb)["loss"])
         second_step_s = time.perf_counter() - t0
     finally:
+        nvcc.BUILD_DIR = build_dir
         if cold_dir is not None:
             shutil.rmtree(cold_dir, ignore_errors=True)
     return {"cell": cell, **device_info(dev), "import_s": import_s,
@@ -137,8 +138,8 @@ def main(argv=None, device=None) -> list:
     if on_card(device) and any(c.startswith("warm") for c in cells):
         from ..ops import bn_act, logmel_cuda
 
-        logmel_cuda.build()                  # what "warm" finds built
-        bn_act.build()
+        logmel_cuda.LIBRARY.load()           # what "warm" finds built
+        bn_act.LIBRARY.load()
     records = []
     for cell in cells:
         t0 = time.perf_counter()

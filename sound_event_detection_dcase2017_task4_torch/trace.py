@@ -27,9 +27,10 @@ A device operation belongs to the innermost step span (``sedx.train.*``,
 benchmark's HTS-AT cell gives each operation to the innermost ``sedx.*``
 span open on the thread that launched it, which is how
 ``window_attention_roofline.htsat`` reads the two window-attention spans.
-HTS-AT's train pass on a card replays CUDA graphs
-(``models.train_graphs``), inside which no span is recorded, unless a
-profiler records (:func:`recording`): a traced pass is eager.
+HTS-AT's train pass in the train step replays CUDA graphs on a card,
+inside which no span is recorded, unless a profiler records
+(:func:`recording`): ``models.train_graphs.train_forward``, the one place
+that decides, keeps a traced pass eager.
 
 :func:`count` adds to one in-process registry of integers that holds every
 counter of the port: ``ops.logmel.launches`` and

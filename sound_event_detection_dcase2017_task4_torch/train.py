@@ -50,6 +50,7 @@ import torch
 from . import parallel, resolve_device, trace
 from .config import Config, DEFAULT
 from .losses import get_loss_func
+from .models import train_graphs
 
 __all__ = ["TrainState", "create_train_state", "default_optimizer",
            "resolve_opt_config", "make_train_step", "make_eval_step",
@@ -287,6 +288,9 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
     loss are averaged over the mesh, so ``loss``, ``grad_norm``, the clip
     and ``nonfinite_count`` are the global batch's and every rank's Adam
     takes the same update.
+
+    The model's train forward is ``models.train_graphs.train_forward``'s:
+    CUDA graphs where that replays them, else the eager call.
     """
     if model is not state.model:
         raise ValueError("make_train_step: model is not the state's model")
@@ -296,6 +300,7 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
     norm = _scalar_on(scalar, device)
     params = list(model.parameters())
     parallel.replicate(model, mesh)
+    forward = train_graphs.train_forward(model, mesh)
 
     def step_fn(logmel, batch_y):
         # ``logmel()``: the step's input → its normalised log-mel
@@ -312,8 +317,7 @@ def make_train_step(model, state: TrainState, loss_type: str = "clip_bce",
                              mesh)
             else:
                 y = parallel.shard_batch(y, mesh)
-            out = model(x, train=True, generator=state.dropout_generator,
-                        mesh=mesh)
+            out = forward(x, generator=state.dropout_generator)
             loss = loss_fn(out, y)
         with trace.span("sedx.train.backward"):
             state.optimizer.zero_grad(set_to_none=True)

@@ -311,7 +311,7 @@ def test_the_module_imports_and_refuses_cpu_tensors_without_nvcc():
             "        raise SystemExit('a CPU tensor was taken')\n"
             "    except ValueError as e:\n"
             "        assert 'CUDA' in str(e), e\n"
-            "assert bn_act._lib is None\n"
+            "assert bn_act.LIBRARY._lib is None\n"
             "print('ok')\n")
     env = dict(os.environ, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent",
                CUDA_VISIBLE_DEVICES="")

@@ -509,22 +509,26 @@ def test_glu_remat_moves_the_running_statistics_once_a_step(cuda):
 
 @pytest.mark.parametrize("dtype,steps", [(torch.float32, 3), (torch.bfloat16, 1)],
                          ids=["f32", "bf16"])
-def test_htsat_train_graphs_replay_the_eager_steps(cuda, dtype, steps):
+def test_htsat_train_graphs_replay_the_eager_steps(cuda, monkeypatch, dtype, steps):
     """A small HTS-AT (mel 16, window 4, drop-path 0.5) takes mixup steps
-    through CUDA graphs (``models.train_graphs``) and, from the same
-    weights and generators, eagerly (a recording profiler keeps the pass
-    eager): losses, gradient norms, parameters and
-    bn0's running statistics agree to rtol 1e-5, the port's counters move
-    by the same amounts (the capture's warm-up taken back; the
-    window-attention kernels' launches among them), and a further train
-    call's outputs agree. The window-attention kernels sum the bias tables'
+    through CUDA graphs (the step's forward from
+    ``models.train_graphs.train_forward``) and, from the same weights and
+    generators, eagerly (a recording profiler keeps that forward eager):
+    losses, gradient norms, parameters and bn0's running statistics agree
+    to rtol 1e-5, the port's counters move by the same amounts (the
+    capture's warm-up taken back; the window-attention kernels' launches
+    among them), and a further call of the step's forward agrees. The window-attention kernels sum the bias tables'
     gradients in a fixed order, but the time stretch's bicubic backward
     (``upsample_bicubic2d_backward``, into bn0's parameters) adds with
     atomics in an order of its own on each run, eager runs included; so in
     bf16, where a last-bit change of a parameter can flip a rounding, one
     step is compared (over 3 the third loss was 1.6e-4 apart); in f32, 3."""
-    from sound_event_detection_dcase2017_task4_torch.models import HTSAT
+    from sound_event_detection_dcase2017_task4_torch.models import HTSAT, train_graphs
 
+    made = []                   # the steps' forwards, as make_train_step got them
+    real = train_graphs.train_forward
+    monkeypatch.setattr(train_graphs, "train_forward",
+                        lambda *a: made.append(real(*a)) or made[-1])
     rng = np.random.RandomState(5)
     x = torch.from_numpy(rng.randn(4, 250, 16).astype(np.float32))
     y = (rng.rand(4, 5) < 0.3).astype(np.float32)
@@ -542,12 +546,13 @@ def test_htsat_train_graphs_replay_the_eager_steps(cuda, dtype, steps):
             torch.cuda.synchronize()
             moved = {k: v - before.get(k, 0) for k, v in trace.counters().items()
                      if k.startswith("ops.") and v != before.get(k, 0)}
-            out = model(x.to(cuda), train=True,
-                        generator=torch.Generator(device=cuda).manual_seed(9))
+            forward = made[-1]
+            out = forward(x.to(cuda),
+                          generator=torch.Generator(device=cuda).manual_seed(9))
         runs.append(([(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
                      {k: v.detach().cpu() for k, v in model.state_dict().items()},
                      moved, {k: v.detach().float().cpu() for k, v in out.items()},
-                     model._graphs._captured))
+                     forward.graphs._captured))
     (eager, s0, c0, o0, cap0), (graphed, s1, c1, o1, cap1) = runs
     assert not cap0 and len(cap1) == 1
     np.testing.assert_allclose(graphed, eager, rtol=1e-5)

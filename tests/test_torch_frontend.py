@@ -427,7 +427,7 @@ def test_importing_the_kernel_module_needs_no_nvcc_or_gpu(tmp_path):
         "import torch\n"
         "from sound_event_detection_dcase2017_task4_torch.ops import logmel_cuda\n"
         "from sound_event_detection_dcase2017_task4_torch.config import Config\n"
-        "assert logmel_cuda._lib is None and logmel_cuda.BUILD_LOG is None\n"
+        "assert logmel_cuda.LIBRARY._lib is None and logmel_cuda.LIBRARY.log is None\n"
         "from sound_event_detection_dcase2017_task4_torch.ops.stft import make_logmel_fn\n"
         "y = make_logmel_fn(Config(clip_samples=16000))(torch.zeros(1, 16000))\n"
         "from sound_event_detection_dcase2017_task4_torch import trace\n"

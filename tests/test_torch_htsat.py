@@ -38,6 +38,7 @@ from sound_event_detection_dcase2017_task4_torch import (features, losses, main,
 from sound_event_detection_dcase2017_task4_torch.config import Config
 from sound_event_detection_dcase2017_task4_torch.models import (
     HTSAT, MODEL_REGISTRY, PORT_REGISTRY, get_model)
+from sound_event_detection_dcase2017_task4_torch.models import train_graphs
 from sound_event_detection_dcase2017_task4_torch.models.blocks import drop_path, drop_path_mask
 from sound_event_detection_dcase2017_task4_torch.models.htsat import fold, unfold
 from sound_event_detection_dcase2017_task4_torch.ops import window_attention as wa
@@ -282,22 +283,34 @@ def test_drop_path_follows_the_dropout_rule():
 def test_train_pass_draws_two_masks_a_block_and_stays_eager_off_the_card():
     """A train forward draws one ``[B]`` mask for each branch of a block
     with a drop-path rate (none for block 0, at rate 0), in the blocks'
-    order, and nothing else from the generator; off a card it runs
-    eagerly (no CUDA graph is captured), and ``TrainGraphs`` refuses an
-    input that requires a gradient."""
+    order, and nothing else from the generator: the model's forward, its
+    split (``draw_masks`` then ``train_pass``) and the train step's forward
+    (``train_graphs.train_forward``) alike, to the same outputs. Off a card
+    the step's forward runs eagerly (no CUDA graph is captured), and
+    ``TrainGraphs`` refuses an input that requires a gradient."""
     m = _port(SMALL, _weights(SMALL))
     x = torch.randn(2, 256, SMALL["mel_bins"])
-    g = torch.Generator().manual_seed(3)
-    m(x, train=True, generator=g)
     want = torch.Generator().manual_seed(3)
     rates = [b.rate for stage in m.layers for b in stage.blocks]
     assert rates[0] == 0 and min(rates[1:]) > 0
     for _ in range(2 * (len(rates) - 1)):
         torch.rand(2, generator=want)
-    assert torch.equal(g.get_state(), want.get_state())
-    assert not m._graphs._captured
+    forward = train_graphs.train_forward(m)
+    assert forward.pattern == (False, False) + (True, True) * (len(rates) - 1)
+    outs = []
+    for run in (lambda g: m(x, train=True, generator=g),
+                lambda g: m.train_pass(x, m.draw_masks(2, g)),
+                lambda g: forward(x, generator=g)):
+        g = torch.Generator().manual_seed(3)
+        outs.append(run(g))
+        assert torch.equal(g.get_state(), want.get_state())
+    for out in outs[1:]:
+        assert out.keys() == outs[0].keys()
+        for k in out:
+            assert torch.equal(out[k], outs[0][k]), k
+    assert not forward.graphs._captured
     with pytest.raises(ValueError, match="gradient"):
-        m._graphs(x.requires_grad_())
+        forward.graphs(x.requires_grad_())
 
 
 def test_two_ranks_train_as_one_process():

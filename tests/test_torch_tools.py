@@ -207,6 +207,23 @@ def test_coldstart_probe_plain_cell_in_a_child():
                                      "cold_kernel", "cold_plain")
 
 
+def test_coldstart_probe_cold_cell_points_the_one_build_dir_and_restores_it(monkeypatch):
+    """A cold cell builds into a fresh ``ops.nvcc.BUILD_DIR``, the one build
+    directory of the hand-written libraries, and puts the package's back."""
+    from sound_event_detection_dcase2017_task4_torch import train
+    from sound_event_detection_dcase2017_task4_torch.ops import nvcc
+
+    package_dir, seen = nvcc.BUILD_DIR, []
+    real = train.make_train_step
+    monkeypatch.setattr(train, "make_train_step",
+                        lambda *a, **k: seen.append(nvcc.BUILD_DIR) or real(*a, **k))
+    rec = coldstart_probe.run_cell("cold_plain", "cpu", batch=1)
+    assert rec["cell"] == "cold_plain" and rec["kernel_build_s"] is None
+    (cold,) = seen
+    assert cold != package_dir and cold.name.startswith("sedx_coldbuild_")
+    assert nvcc.BUILD_DIR == package_dir and not cold.exists()
+
+
 # ---------------------------------------------------------------------------
 # scale_soak
 # ---------------------------------------------------------------------------
