@@ -176,18 +176,20 @@ random weights, in phases that each raise on failure:
 15. (run after phase 4) the train-mode BatchNorm kernels (``ops.bn_act``,
    ``csrc/bn_act.cu``): their build and registers; at every conv-stack
    block's shape of the crnn and the glu (batch 128, planes 1001×64,
-   500×32, 250×16, 125×8) and each epilogue, bf16, the kernels against the
-   plain versions with the ``a``, ``b`` and sums' gradient a step gives
-   (``bn_act.sums_grad``): ``y``, the forward and backward sums, and
-   ``dx`` region by region (``bn_act.grad_x_mismatch``: where ``g`` may
-   be non-zero, where ReLU's mask zeroes it, the rows and columns the
-   pool drops); then at block 1's shape ``[128, 64, 1001, 64]`` each
-   kernel's time alone (CUDA events over back-to-back calls, the
-   profiler's time of the kernels named ``sedx_bn_`` beside it; K1 the
-   sums, K2 the apply, K3 the backward's sums, K4 ``dx``), their sum
-   against the function's least bytes at 3.35 TB/s, and the stock
-   composite's forward and backward beside the fused path's through
-   ``BatchNorm``; last the host µs a call of each wrapper and of a
+   500×32, 250×16, 125×8), each epilogue and both layouts (the NCHW
+   kernels, HTS-AT's ``bn0``'s, and the channels-last ones, the conv
+   stack's), bf16, the kernels against the plain versions with the ``a``,
+   ``b`` and sums' gradient a step gives (``bn_act.sums_grad``): ``y``,
+   the forward and backward sums (repeated bit for bit), and ``dx`` region
+   by region (``bn_act.grad_x_mismatch``: where ``g`` may be non-zero,
+   where ReLU's mask zeroes it, the rows and columns the pool drops); then
+   at the same shapes, epilogues and layouts each kernel's time alone
+   (CUDA events over back-to-back calls; K1 the sums, K2 the apply, K3 the
+   backward's sums, K4 ``dx``) and their sum against the function's least
+   bytes at 3.35 TB/s, and at block 1's shape ``[128, 64, 1001, 64]`` the
+   profiler's time of the kernels named ``sedx_bn_`` and the stock
+   composite's forward and backward (NCHW) beside the fused path's through
+   ``BatchNorm`` in each layout; last the host µs a call of each wrapper and of a
    ``BatchNorm`` call on each path at ``[8, 64, 16, 16]``. It prints the
    ``bn_act`` JSON line.
 16. (run after phase 15) HTS-AT's window-attention kernels
@@ -216,7 +218,8 @@ It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
 of phase 10, ``launches_parallel`` of phase 11, ``launches_tools`` of phase
 12, ``launches_entry`` of phase 13, ``launches_resume`` of phase 14; a
 ``window_attention`` entry with phase 16's launches on HTS-AT's path; and a
-``bn_act`` entry with the ``ops.bn_act`` counters of each phase after 15,
+``bn_act`` entry with the ``ops.bn_act`` counters of each phase after 15
+(``channels_last_calls`` among them: 8 a crnn step, 16 a GLU step),
 its tools' children included, which fails the run if a train-mode
 ``BatchNorm`` call on the card took the composite or a training phase ran
 no kernel), then as its last line
@@ -230,6 +233,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import gc
+import itertools
 import json
 import os
 import pickle
@@ -596,10 +600,12 @@ def phase_gru(torch, card):
 
 BN_BLOCKS = [(128, 64, 1001, 64), (128, 128, 500, 32), (128, 256, 250, 16),
              (128, 512, 125, 8)]      # the crnn's and the glu's conv outputs
+BN_LAYOUTS = ("nchw", "nhwc")         # the kernels' two: bn0's, the stack's
 
 
-def _bn_case(torch, shape, act, dev, seed):
-    """``x``, ``dy`` (bf16) and the ``a``, ``b``, ``gs`` a step gives them
+def _bn_case(torch, shape, act, dev, seed, layout="nchw"):
+    """``x``, ``dy`` (bf16, in ``layout``: ``"nchw"`` or ``"nhwc"``, the
+    channels-last one) and the ``a``, ``b``, ``gs`` a step gives them
     (``bn_act.sums_grad``: batch statistics, the sums' gradient)."""
     from sound_event_detection_dcase2017_task4_torch.ops import bn_act
 
@@ -612,6 +618,9 @@ def _bn_case(torch, shape, act, dev, seed):
     bias = 0.2 * torch.randn(c, generator=g, device=dev)
     oshape = (b, c, t // 2, f // 2) if act == "relu_pool" else shape
     dy = torch.randn(oshape, generator=g, device=dev).to(torch.bfloat16)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
     return (x, dy) + bn_act.sums_grad(x, dy, weight, bias, act)
 
 
@@ -645,97 +654,105 @@ def phase_bn_act(torch, card):
     dev = torch.device("cuda")
     out = {"dtype": "bfloat16", "card": card, "checks": {}}
 
-    # the kernels against the plain versions at every block's shape, with a
-    # step's gradient of the sums: y and the sums as a whole, dx region by
-    # region (where g is 0 at c1 + c2·x's own scale), away from ReLU's kink
-    for shape in BN_BLOCKS:
-        for act in bn_act.ACTS:
-            x, dy, a, b, gs = _bn_case(torch, shape, act, dev, 0)
-            y1, y0 = bn_act.apply_cuda(x, a, b, act), bn_act.apply_plain(x, a, b, act)
-            keep = ((bn_act._z(x, a, b).abs() > 1e-3) | (act == "none")
-                    if act != "relu_pool" else torch.ones_like(y1, dtype=torch.bool))
-            y_err = float(((y1.float() - y0.float()).abs()
-                           / (y0.float().abs() + 1e-3))[keep].max())
-            del y1, y0, keep
-            # the sums within a share of each channel's sum of magnitudes
-            g = bn_act._grad_z(dy, x, a, b, act)
-            mag = torch.cat([g.abs().sum((0, 2, 3)), (g * x).abs().sum((0, 2, 3))])
-            del g
-            s0 = bn_act.stats_plain(x)
-            g0 = bn_act.grad_stats_plain(dy, x, a, b, act)
-            sums_err = max(
-                float(((bn_act.stats_cuda(x) - s0).abs()
-                       / bn_act.stats_plain(x.abs()).clamp(min=1)).max()),
-                float(((bn_act.grad_stats_cuda(dy, x, a, b, act) - g0).abs()
-                       / mag.clamp(min=1e-30)).max()))
-            regions = bn_act.grad_x_mismatch(bn_act.grad_x_cuda(dy, x, a, b, gs, act),
-                                             dy, x, a, b, gs, act, 2 ** -7)
-            want = {"g"} | ({"masked"} if act != "none" else set()) | (
-                {"dropped"} if act == "relu_pool" and shape[2] % 2 else set())
-            tag = f"{shape[2]}x{shape[3]}x{shape[1]}-{act}"
-            out["checks"][tag] = {"y": y_err, "sums": sums_err, "dx": regions}
-            if (y_err > 2 ** -7 or sums_err > 1e-5
-                    or {k for k, (_, n) in regions.items() if n} != want
-                    or any(w > 1 for w, _ in regions.values())):
-                raise AssertionError(f"bn_act {tag} disagrees with its plain version: "
-                                     f"{out['checks'][tag]}")
-            print(f"[bn_act] {tag} bf16 batch 128 against plain: y {y_err:.2e}, sums "
-                  f"{sums_err:.2e}, dx by region (worst / limit, elements) "
-                  + ", ".join(f"{k} {w:.3f} ({n})" for k, (w, n) in regions.items()))
-            del x, dy, s0, g0, mag
+    # the kernels against the plain versions at every block's shape, in both
+    # layouts, with a step's gradient of the sums: y and the sums as a whole,
+    # dx region by region (where g is 0 at c1 + c2·x's own scale), away from
+    # ReLU's kink
+    for shape, act, layout in itertools.product(BN_BLOCKS, bn_act.ACTS, BN_LAYOUTS):
+        x, dy, a, b, gs = _bn_case(torch, shape, act, dev, 0, layout)
+        y1, y0 = bn_act.apply_cuda(x, a, b, act), bn_act.apply_plain(x, a, b, act)
+        keep = ((bn_act._z(x, a, b).abs() > 1e-3) | (act == "none")
+                if act != "relu_pool" else torch.ones_like(y1, dtype=torch.bool))
+        y_err = float(((y1.float() - y0.float()).abs()
+                       / (y0.float().abs() + 1e-3))[keep].max())
+        del y1, y0, keep
+        # the sums within a share of each channel's sum of magnitudes
+        g = bn_act._grad_z(dy, x, a, b, act)
+        mag = torch.cat([g.abs().sum((0, 2, 3)), (g * x).abs().sum((0, 2, 3))])
+        del g
+        s0 = bn_act.stats_plain(x)
+        g0 = bn_act.grad_stats_plain(dy, x, a, b, act)
+        s1, g1 = bn_act.stats_cuda(x), bn_act.grad_stats_cuda(dy, x, a, b, act)
+        if not (torch.equal(bn_act.stats_cuda(x), s1)
+                and torch.equal(bn_act.grad_stats_cuda(dy, x, a, b, act), g1)):
+            raise AssertionError(f"bn_act {shape} {act} {layout}: the sums do not "
+                                 "repeat bit for bit")
+        sums_err = max(
+            float(((s1 - s0).abs()
+                   / bn_act.stats_plain(x.abs()).clamp(min=1)).max()),
+            float(((g1 - g0).abs() / mag.clamp(min=1e-30)).max()))
+        regions = bn_act.grad_x_mismatch(bn_act.grad_x_cuda(dy, x, a, b, gs, act),
+                                         dy, x, a, b, gs, act, 2 ** -7)
+        want = {"g"} | ({"masked"} if act != "none" else set()) | (
+            {"dropped"} if act == "relu_pool" and shape[2] % 2 else set())
+        tag = f"{shape[2]}x{shape[3]}x{shape[1]}-{act}-{layout}"
+        out["checks"][tag] = {"y": y_err, "sums": sums_err, "dx": regions}
+        if (y_err > 2 ** -7 or sums_err > 1e-5
+                or {k for k, (_, n) in regions.items() if n} != want
+                or any(w > 1 for w, _ in regions.values())):
+            raise AssertionError(f"bn_act {tag} disagrees with its plain version: "
+                                 f"{out['checks'][tag]}")
+        print(f"[bn_act] {tag} bf16 batch 128 against plain: y {y_err:.2e}, sums "
+              f"{sums_err:.2e}, dx by region (worst / limit, elements) "
+              + ", ".join(f"{k} {w:.3f} ({n})" for k, (w, n) in regions.items()))
+        del x, dy, s0, g0, s1, g1, mag
 
-    # each kernel alone at block 1's shape, and the layer through BatchNorm
-    shape = BN_BLOCKS[0]
-    c = shape[1]
-    out["shape"] = list(shape)
-    for act in bn_act.ACTS:
-        x, dy, a, b, gs = _bn_case(torch, shape, act, dev, 1)
+    # each kernel alone at every block's shape in both layouts, and at block
+    # 1's the layer through BatchNorm
+    out["shapes"] = [list(s) for s in BN_BLOCKS]
+    out["timing"] = {}
+    for shape, act, layout in itertools.product(BN_BLOCKS, bn_act.ACTS, BN_LAYOUTS):
+        x, dy, a, b, gs = _bn_case(torch, shape, act, dev, 1, layout)
         calls = {"K1": lambda: bn_act.stats_cuda(x),
                  "K2": lambda: bn_act.apply_cuda(x, a, b, act),
                  "K3": lambda: bn_act.grad_stats_cuda(dy, x, a, b, act),
                  "K4": lambda: bn_act.grad_x_cuda(dy, x, a, b, gs, act)}
         # CUDA events around back-to-back calls; the profiler's time of the
-        # kernels beside them, for reference only: late in this long process
-        # it has dropped kernels (a K4 read at 3.9 TB/s, over the HBM peak)
+        # kernels beside them at block 1, for reference only: late in this
+        # long process it has dropped kernels (a K4 read at 3.9 TB/s)
         kernels = {k: _cuda_ms(torch, fn) for k, fn in calls.items()}
-        profiled = {k: _profiled_kernel_ms(torch, fn, "sedx_bn_")
-                    for k, fn in calls.items()}
+        first = shape == BN_BLOCKS[0]
+        profiled = ({k: _profiled_kernel_ms(torch, fn, "sedx_bn_")
+                     for k, fn in calls.items()} if first else {})
         fwd_b, bwd_b = bn_act.least_bytes(shape, 2, act)
         bound_ms = (fwd_b + bwd_b) / PEAK_BYTES_PER_S * 1e3
         total = sum(kernels.values())
+        tag = f"{shape[2]}x{shape[3]}x{shape[1]}-{act}-{layout}"
         if bound_ms > 1.05 * total:
-            raise AssertionError(f"bn_act {act}: {total} ms is under the HBM "
+            raise AssertionError(f"bn_act {tag}: {total} ms is under the HBM "
                                  f"bound {bound_ms} ms")
+        entry = {"kernels_ms": kernels, "total_ms": total, "bound_ms": bound_ms,
+                 "roofline_pct": 100 * bound_ms / total}
+        line = (f"[bn_act] {tag} {list(shape)} bf16 alone (CUDA events): "
+                + ", ".join(f"{k} {v:.4f}" for k, v in kernels.items())
+                + f"; sum {total:.4f} ms, bound {bound_ms:.4f} ms "
+                f"({(fwd_b + bwd_b) / 1e9:.3f} GB), {100 * bound_ms / total:.2f}% of it")
+        if first:
+            # the layer through BatchNorm: the composite's passes (NCHW) and
+            # the fused ones
+            bn = BatchNorm(shape[1], dtype=torch.bfloat16).to(dev)
+            xr = x.detach().clone().requires_grad_(True)
+            layer = {}
+            for fused in ((False, True) if layout == "nchw" else (True,)):
+                def fwd():
+                    return bn._forward(xr, True, None, act, fused)
 
-        # the layer through BatchNorm: the composite's passes and the fused ones
-        bn = BatchNorm(c, dtype=torch.bfloat16).to(dev)
-        xr = x.detach().clone().requires_grad_(True)
-        layer = {}
-        for fused in (False, True):
-            def fwd():
-                return bn._forward(xr, True, None, act, fused)
+                def both():
+                    y = fwd()
+                    xr.grad = None
+                    y.backward(torch.ones_like(y))
 
-            def both():
-                y = fwd()
-                xr.grad = None
-                y.backward(torch.ones_like(y))
-
-            f_ms = _cuda_ms(torch, fwd, iters=5)
-            layer["fused" if fused else "stock"] = (
-                f_ms, _cuda_ms(torch, both, iters=5) - f_ms)
-        out[act] = {"kernels_ms": kernels, "profiled_ms": profiled,
-                    "total_ms": total, "bound_ms": bound_ms,
-                    "roofline_pct": 100 * bound_ms / total,
-                    "layer_fwd_bwd_ms": layer}
-        print(f"[bn_act] {act} {list(shape)} bf16 alone (CUDA events; "
-              f"profiler): " + ", ".join(
-                  f"{k} {v:.4f} ms ({profiled[k] or 0:.4f})" for k, v in kernels.items())
-              + f"; sum {total:.4f} ms, least bytes {(fwd_b + bwd_b) / 1e9:.3f} GB "
-              f"→ bound {bound_ms:.4f} ms, {100 * bound_ms / total:.2f}% of it; "
-              f"through BatchNorm fwd/bwd ms: stock {layer['stock'][0]:.4f} / "
-              f"{layer['stock'][1]:.4f}, fused {layer['fused'][0]:.4f} / "
-              f"{layer['fused'][1]:.4f} [{card}]")
-        del x, dy, xr, bn
+                f_ms = _cuda_ms(torch, fwd, iters=5)
+                layer["fused" if fused else "stock"] = (
+                    f_ms, _cuda_ms(torch, both, iters=5) - f_ms)
+            entry.update(profiled_ms=profiled, layer_fwd_bwd_ms=layer)
+            line += ("; profiler " + ", ".join(f"{k} {v or 0:.4f}" for k, v in profiled.items())
+                     + "; through BatchNorm fwd/bwd ms: " + ", ".join(
+                         f"{k} {f:.4f} / {b_:.4f}" for k, (f, b_) in layer.items()))
+            del xr, bn
+        out["timing"][tag] = entry
+        print(f"{line} [{card}]")
+        del x, dy
 
     # host cost: µs a call of each wrapper, and of a BatchNorm call forward
     # and forward + backward on each path, at a shape the device keeps up with
@@ -1019,7 +1036,7 @@ def _launches(entry):
 # phases' CPU reference steps) and ``launches`` of this process and of the
 # tools' children; ``card_plain``, train-mode calls on a CUDA tensor that
 # took the composite in this process, which must stay 0
-_BN_KEYS = ("calls", "plain_calls", "launches")
+_BN_KEYS = ("calls", "plain_calls", "launches", "channels_last_calls")
 _BN_TALLY: dict[str, dict[str, int]] = {}
 _BN_PHASE = ["phases_1_to_4_15_and_16"]
 

@@ -1,11 +1,16 @@
-"""Shared model building blocks (PyTorch, NCHW inside, bf16-capable).
+"""Shared model building blocks (PyTorch, channels-last inside, bf16-capable).
 
 Counterpart of ``sound_event_detection_dcase2017_task4_tpu/models/blocks.py``
 (reference: ``pytorch/models.py:{init_layer,init_bn,ConvBlock,AttBlock}`` and
 the GLU block of the gated-CNN variant).
 
-* Inside, activations are NCHW ``[B, C, T, F]`` (the JAX package is NHWC);
-  the model's public boundary keeps the JAX layout (``models/zoo.py``).
+* Inside, activations are ``[B, C, T, F]`` laid out channels-last (NHWC in
+  memory, as the JAX package's are): every conv of the stack takes and
+  gives channels-last tensors (:func:`conv3x3`), the layout cuDNN's bf16
+  convolutions read and write, so none of them transposes its operands;
+  the BatchNorm kernels, the epilogues, the GLU gate, the pool and dropout
+  keep it. The model's public boundary keeps the JAX layout
+  (``models/zoo.py``).
 * ``dtype`` is the compute type: weights stay float32 and are cast at use,
   as flax's ``dtype``/``param_dtype`` split does.
 * Train mode is an explicit ``train`` argument, as in flax: ``BatchNorm``
@@ -32,6 +37,7 @@ from .. import parallel, trace
 from ..ops import bn_act
 
 __all__ = ["ConvBlock", "GLUBlock", "AttBlock", "BatchNorm", "LayerNorm",
+           "conv3x3",
            "Dropout", "dropout", "drop_path", "drop_path_mask", "Dense",
            "LecunDense",
            "frozen_statistics", "interpolate", "pad_framewise_output",
@@ -80,10 +86,14 @@ def _threshold(rate: float) -> int:
 
 
 def _keep_mask(shape: tuple, rate: float, generator: torch.Generator | None,
-               mesh, device) -> torch.Tensor | None:
+               mesh, device, like: torch.Tensor | None = None
+               ) -> torch.Tensor | None:
     """The keep mask of ``shape`` (this rank's) drawn at ``rate`` by
     :class:`Dropout`'s rule; ``None`` at rate 0 and all false at rate 1,
-    neither drawing."""
+    neither drawing. With ``like`` (a tensor of ``shape``) the mask takes
+    its layout: the draw is the same, element for element, and only the
+    comparison writes in that order, so that ``torch.where`` over the mask
+    keeps ``like``'s layout too."""
     if generator is None:
         raise ValueError("train-mode Dropout needs an explicit "
                          "torch.Generator")
@@ -93,9 +103,13 @@ def _keep_mask(shape: tuple, rate: float, generator: torch.Generator | None,
     if threshold == 0:
         return torch.zeros(shape, dtype=torch.bool, device=device)
     # the global batch's draw, this rank's rows of it
-    return parallel.shard_batch(torch.rand(
+    r = parallel.shard_batch(torch.rand(
         (parallel.mesh_size(mesh) * shape[0],) + tuple(shape[1:]),
-        generator=generator, device=device), mesh) < threshold / 65536.0
+        generator=generator, device=device), mesh)
+    if like is None:
+        return r < threshold / 65536.0
+    return torch.lt(r, threshold / 65536.0,
+                    out=torch.empty_like(like, dtype=torch.bool))
 
 
 def _apply(x: torch.Tensor, mask: torch.Tensor | None, rate: float) -> torch.Tensor:
@@ -117,7 +131,8 @@ def dropout(x: torch.Tensor, rate: float, train: bool = False,
     """The function of :class:`Dropout` with its rate as an argument."""
     if not train:
         return x
-    return _apply(x, _keep_mask(x.shape, rate, generator, mesh, x.device), rate)
+    return _apply(x, _keep_mask(x.shape, rate, generator, mesh, x.device, x),
+                  rate)
 
 
 def drop_path_mask(rows: int, rate: float, generator: torch.Generator | None,
@@ -152,6 +167,8 @@ class Dropout(nn.Module):
 
     The mask is ``torch.rand(..., generator=generator) < threshold/65536``:
     exact in float32 on the CPU, whose uniform draws are multiples of 2⁻²⁴.
+    The draw is in ``x``'s logical (NCHW) order whatever its layout; the
+    mask and the result take ``x``'s layout.
     The two frameworks draw different bits; train mode without a generator
     raises. Under a ``mesh`` the mask is drawn for the global batch (every
     rank draws the same bits from the same generator state) and the rank
@@ -201,7 +218,9 @@ class BatchNorm(nn.Module):
     arithmetic rounded once to x's dtype; its backward is two more passes
     (``ops.bn_act``). The ``[C]`` math between them is the code above.
     The counters ``ops.bn_act.calls`` and ``ops.bn_act.plain_calls`` count
-    train-mode calls on each path.
+    train-mode calls on each path, and ``ops.bn_act.channels_last_calls``
+    the fused ones on a channels-last ``x`` (the kernels' channels-last
+    path on a card).
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
@@ -233,6 +252,8 @@ class BatchNorm(nn.Module):
             trace.count("ops.bn_act.calls" if fused
                         else "ops.bn_act.plain_calls")
             if fused:
+                if bn_act.channels_last(x):
+                    trace.count("ops.bn_act.channels_last_calls")
                 link = bn_act.Link(act)
                 sums = bn_act.batch_sums(x, link)
             else:
@@ -312,10 +333,27 @@ class LayerNorm(nn.Module):
         return ((xf - mean) * mul + self.bias).to(self.compute_dtype)
 
 
+def conv3x3(x: torch.Tensor, weight: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """A 3×3 conv of the stack (padding 1, no bias) in ``dtype``, on
+    channels-last tensors, so that cuDNN runs the conv, its input gradient
+    and its weight gradient channels-last. The float32 weight is cast
+    channels-last at use (its gradient comes back to the parameter in the
+    parameter's own layout). ``x`` is taken as it is when it has
+    channels-last strides, else copied to them: the stack's one-channel
+    input is contiguous in both layouts, but PyTorch picks the weight
+    gradient's layout from the input's strides alone, and NCHW ones there
+    cost a copy of the output's gradient each way."""
+    cl = torch.channels_last
+    return F.conv2d(x.to(dtype, memory_format=cl),
+                    weight.to(dtype, memory_format=cl), padding=1)
+
+
 class ConvBlock(nn.Module):
     """2 × (3×3 conv, padding 1, no bias → BN → ReLU) → 2×2 average pool
-    (floor), on ``[B, C, T, F]``. The BatchNorms take ReLU as their
-    epilogue, the second one a 2×2 pool too."""
+    (floor), on ``[B, C, T, F]`` channels-last (:func:`conv3x3`). The
+    BatchNorms take ReLU as their epilogue, the second one a 2×2 pool
+    too."""
 
     def __init__(self, in_channels: int, channels: int,
                  pool: tuple[int, int] = (2, 2),
@@ -339,7 +377,7 @@ class ConvBlock(nn.Module):
         # a 2x2 pool goes into the last BatchNorm's epilogue
         fold = self.pool == (2, 2)
         for i, (conv, bn) in enumerate(zip(self.convs, self.bns)):
-            x = F.conv2d(x.to(dt), conv.weight.to(dt), padding=1)
+            x = conv3x3(x, conv.weight, dt)
             last = i == len(self.convs) - 1
             x = bn(x, train, mesh, "relu_pool" if fold and last else "relu")
         if self.pool not in ((1, 1), (2, 2)):
@@ -350,9 +388,10 @@ class ConvBlock(nn.Module):
 class GLUBlock(nn.Module):
     """2 × (``lin`` and ``gate``: two separate 3×3 convs, padding 1, no bias,
     each with its own BN → ``lin · sigmoid(gate)``) → 2×2 average pool, on
-    ``[B, C, T, F]`` (the JAX ``GLUBlock``, ``blocks.py:160-202``; flax
-    ``Conv_{lin,gate}_i`` / ``BatchNorm_{lin,gate}_i``). Two C-channel convs,
-    as in the JAX package, not one 2C conv split afterwards."""
+    ``[B, C, T, F]`` channels-last (the JAX ``GLUBlock``,
+    ``blocks.py:160-202``; flax ``Conv_{lin,gate}_i`` /
+    ``BatchNorm_{lin,gate}_i``). Two C-channel convs, as in the JAX
+    package, not one 2C conv split afterwards."""
 
     def __init__(self, in_channels: int, channels: int,
                  pool: tuple[int, int] = (2, 2),
@@ -383,8 +422,8 @@ class GLUBlock(nn.Module):
         for lin, gate, bn_lin, bn_gate in zip(self.lin, self.gate,
                                               self.bn_lin, self.bn_gate):
             x = x.to(dt)
-            a = bn_lin(F.conv2d(x, lin.weight.to(dt), padding=1), train, mesh)
-            g = bn_gate(F.conv2d(x, gate.weight.to(dt), padding=1), train, mesh)
+            a = bn_lin(conv3x3(x, lin.weight, dt), train, mesh)
+            g = bn_gate(conv3x3(x, gate.weight, dt), train, mesh)
             x = a * torch.sigmoid(g)
         if self.pool != (1, 1):
             x = F.avg_pool2d(x, self.pool)

@@ -10,12 +10,12 @@ package's dict::
      "framewise_output": [B, T, classes] sigmoid probabilities (SED),
      "embedding":        [B, T', D]     pre-head features}
 
-Inside, the conv stack runs NCHW ``[B, C, T, F]``; the boundary keeps the JAX
-layout so the two packages compare like with like. Weights are initialised
-as flax initialises them (glorot-uniform conv and dense kernels, orthogonal
-GRU recurrent kernels, lecun-normal attention projections, zero biases,
-BatchNorm and LayerNorm scale 1 / bias 0) from an explicit
-``torch.Generator``; the two frameworks draw different numbers, so
+Inside, the conv stack runs ``[B, C, T, F]`` channels-last (``blocks``); the
+boundary keeps the JAX layout so the two packages compare like with like.
+Weights are initialised as flax initialises them (glorot-uniform conv and
+dense kernels, orthogonal GRU recurrent kernels, lecun-normal attention
+projections, zero biases, BatchNorm and LayerNorm scale 1 / bias 0) from an
+explicit ``torch.Generator``; the two frameworks draw different numbers, so
 equivalence tests carry JAX weights across with ``weights.load_jax_variables``.
 
 ``forward(logmel, train=False, generator=None)``: train mode takes
@@ -275,7 +275,9 @@ class SedCnn(nn.Module):
         global batch, and train mode takes the global batch's statistics
         and masks (``blocks.BatchNorm``, ``blocks.dropout``)."""
         frames_num = logmel.shape[1]
-        x = logmel[:, None].to(self.dtype)                    # [B, 1, T, F]
+        # [B, 1, T, F], cast with channels-last strides in one copy
+        # (blocks.conv3x3 takes it as it is)
+        x = logmel[:, None].to(self.dtype, memory_format=torch.channels_last)
         for block, drop in zip(self.blocks, self.dropouts):
             if self.remat and train:
                 x = checkpoint(block, x, train, mesh, use_reentrant=False,
@@ -284,7 +286,8 @@ class SedCnn(nn.Module):
             else:
                 x = block(x, train, mesh)
             x = drop(x, train, generator, mesh)
-        x = x.mean(dim=3).transpose(1, 2)                     # [B, T', C]
+        # [B, T', C], contiguous: channels are innermost in memory
+        x = x.permute(0, 2, 3, 1).mean(dim=2)
         if self.gru is not None:
             x = self.gru(x, train)
         elif self.transformer is not None:

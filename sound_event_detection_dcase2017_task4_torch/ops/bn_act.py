@@ -9,8 +9,8 @@ variance, ``a``, ``b``, the running statistics) stays in ``BatchNorm``.
 ``"relu_pool"`` (its second: only the 2×2 floor average pool of the ReLU is
 written) or ``"none"`` (``GLUBlock``'s ``lin`` and ``gate``).
 
-Four passes over each conv output ``x [B, C, T, F]`` (NCHW, contiguous,
-bf16 or float32; f32 arithmetic, each output rounded once):
+Four passes over each conv output ``x [B, C, T, F]`` (contiguous NCHW or
+channels-last, bf16 or float32; f32 arithmetic, each output rounded once):
 
 * forward: K1 ``x → [Σx, Σx²]`` (f32 ``[2C]``), K2 ``x → act(x·a + b)``;
 * backward: K3 ``dy, x → [Σg, Σg·x]``, ``g`` the gradient at ``x·a + b``
@@ -27,9 +27,16 @@ which the apply's backward hands ``dy`` and the saved tensors to the sums'.
 Only ``x`` and ``[C]`` vectors are saved: no f32 copy, no pre-pool
 activation.
 
+Each layout has kernels of its own, chosen by what ``x``'s strides show
+(:func:`channels_last`): the NCHW kernels for an ``x`` contiguous as NCHW
+(HTS-AT's ``bn0``), the channels-last ones for an ``x`` contiguous only as
+channels-last (the conv stack's). Anything else raises. ``y`` and ``dx``
+take ``x``'s layout, and ``dy`` is made contiguous in it.
+
 A CPU tensor goes to the plain versions (same math, written with PyTorch
-ops, in float32 or the input's wider type); the tests hold them to the
-stock composite and to ``gradcheck``, and ``chip_smoke.py`` and the card
+ops, in float32 or the input's wider type, in any layout, with outputs in
+``x``'s); the tests hold them to the stock composite and to
+``gradcheck``, and ``chip_smoke.py`` and the card
 tests hold the kernels to them: :func:`sums_grad` gives K4 the gradient a
 step would, and :func:`grad_x_mismatch` holds ``dx`` to its plain version
 region by region, the elements where ``g`` is 0 apart. A CUDA tensor goes
@@ -57,7 +64,7 @@ from .. import trace
 from . import nvcc
 
 __all__ = ["ACTS", "LIBRARY", "Link", "apply_cuda", "apply_plain", "batch_apply",
-           "batch_sums", "grad_stats_cuda", "grad_stats_plain",
+           "batch_sums", "channels_last", "grad_stats_cuda", "grad_stats_plain",
            "grad_x_cuda", "grad_x_mismatch", "grad_x_plain", "least_bytes",
            "stats_cuda", "stats_plain", "sums_grad"]
 
@@ -71,13 +78,14 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SHAPE = [_ci] * 4          # B, C, T, F
 #: ``csrc/bn_act.cu``, built at first use (:class:`nvcc.Library`).
 LIBRARY = nvcc.Library(SOURCE, "bn_act", {
-    "sedx_bn_partials": (_ci, [*_SHAPE, _ci, _ci, _ci]),
-    "sedx_bn_stats": (_ci, [_vp, _ci, _ci, *_SHAPE, _vp, _vp, _vp]),
-    "sedx_bn_apply": (_ci, [_vp, _ci, _ci, _ci, _vp, _vp, *_SHAPE, _vp, _vp]),
-    "sedx_bn_grad_stats": (_ci, [_vp, _vp, _ci, _ci, _ci, _vp, _vp, *_SHAPE,
-                                 _vp, _vp, _vp]),
-    "sedx_bn_grad_x": (_ci, [_vp, _vp, _ci, _ci, _ci, _vp, _vp, _vp, *_SHAPE,
-                             _vp, _vp])},
+    "sedx_bn_partials": (_ci, [*_SHAPE, _ci, _ci, _ci, _ci]),
+    "sedx_bn_stats": (_ci, [_vp, _ci, _ci, _ci, *_SHAPE, _vp, _vp, _vp]),
+    "sedx_bn_apply": (_ci, [_vp, _ci, _ci, _ci, _ci, _vp, _vp, *_SHAPE, _vp,
+                            _vp]),
+    "sedx_bn_grad_stats": (_ci, [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp,
+                                 *_SHAPE, _vp, _vp, _vp]),
+    "sedx_bn_grad_x": (_ci, [_vp, _vp, _ci, _ci, _ci, _ci, _vp, _vp, _vp,
+                             *_SHAPE, _vp, _vp])},
     "sedx_bn_error_string")
 
 
@@ -116,17 +124,18 @@ def apply_plain(x, a, b, act: str) -> torch.Tensor:
 
 
 def _grad_z(dy, x, a, b, act):
-    """The gradient at ``z = x·a + b``, full size: ``dy`` (``none``), ReLU's
-    mask on it (``relu``), ``dy/4`` over each pooled window and 0 on what
-    the pool drops, under the mask (``relu_pool``)."""
+    """The gradient at ``z = x·a + b``, full size and in ``x``'s layout:
+    ``dy`` (``none``), ReLU's mask on it (``relu``), ``dy/4`` over each
+    pooled window and 0 on what the pool drops, under the mask
+    (``relu_pool``)."""
     z = _z(x, a, b)
-    g = dy.to(z.dtype)
     if act == "relu_pool":
-        to, fo = g.shape[2:]
-        full = torch.zeros_like(z)
-        full[:, :, :2 * to, :2 * fo] = 0.25 * g.repeat_interleave(
+        to, fo = dy.shape[2:]
+        g = torch.zeros_like(z)
+        g[:, :, :2 * to, :2 * fo] = 0.25 * dy.to(z.dtype).repeat_interleave(
             2, 2).repeat_interleave(2, 3)
-        g = full
+    else:
+        g = torch.empty_like(z).copy_(dy)
     if act != "none":
         g = torch.where(z > 0, g, torch.zeros_like(g))
     return g
@@ -227,7 +236,22 @@ def least_bytes(shape, itemsize: int, act: str) -> tuple[int, int]:
     return itemsize * (n + out), itemsize * (2 * n + out)
 
 
-def _check_x(x: torch.Tensor, act: str) -> None:
+def channels_last(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the channels-last kernels: contiguous as
+    channels-last and not as NCHW. A tensor contiguous in both (one channel,
+    or a 1×1 plane) has the same memory order in both and takes the NCHW
+    ones."""
+    return (not x.is_contiguous()
+            and x.is_contiguous(memory_format=torch.channels_last))
+
+
+def _format(nhwc: bool) -> torch.memory_format:
+    return torch.channels_last if nhwc else torch.contiguous_format
+
+
+def _check_x(x: torch.Tensor, act: str) -> bool:
+    """Raises on an ``x`` (and ``act``) the kernels do not take; returns
+    :func:`channels_last` of it."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS} (got {act!r})")
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
@@ -238,18 +262,23 @@ def _check_x(x: torch.Tensor, act: str) -> None:
     if x.ndim != 4 or x.numel() == 0:
         raise ValueError(f"expected a non-empty x [B, C, T, F] (got "
                          f"{tuple(x.shape)})")
-    if not x.is_contiguous():
-        raise ValueError("the bn_act kernels take a contiguous NCHW x")
+    if not (x.is_contiguous()
+            or x.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("the bn_act kernels take a contiguous NCHW or "
+                         "channels-last x")
     if act == "relu_pool" and min(x.shape[2:]) < 2:
         raise ValueError(f"relu_pool of a {tuple(x.shape[2:])} plane is empty")
+    return channels_last(x)
 
 
-def _check_same(t: torch.Tensor, x: torch.Tensor, shape, what: str) -> None:
+def _check_same(t: torch.Tensor, x: torch.Tensor, shape, what: str,
+                nhwc: bool) -> None:
+    fmt = _format(nhwc)
     if (not isinstance(t, torch.Tensor) or t.device != x.device
             or t.dtype != x.dtype or tuple(t.shape) != tuple(shape)
-            or not t.is_contiguous()):
-        raise ValueError(f"{what} must be a contiguous {x.dtype} {tuple(shape)} "
-                         f"on {x.device}")
+            or not t.is_contiguous(memory_format=fmt)):
+        raise ValueError(f"{what} must be a {x.dtype} {tuple(shape)} on "
+                         f"{x.device}, contiguous in x's layout ({fmt})")
 
 
 def _check_vec(v: torch.Tensor, n: int, x: torch.Tensor, what: str) -> None:
@@ -283,38 +312,41 @@ def _check(rc: int, x, n: int, entry: str) -> int:
     return rc
 
 
-def _partials(lib, x, act, aligned):
+def _partials(lib, x, act, aligned, nhwc):
     """Scratch for the per-block partials of K1 (``act`` ``"none"``) or K3."""
     n = _check(lib.sedx_bn_partials(*x.shape, _DTYPES[x.dtype], ACTS.index(act),
-                                    aligned), x, 0, "sedx_bn_partials")
+                                    aligned, nhwc),
+               x, 0, "sedx_bn_partials")
     return torch.empty((x.shape[1], n, 2), dtype=torch.float32,
                        device=x.device)
 
 
 def stats_cuda(x: torch.Tensor) -> torch.Tensor:
     """K1 and the combine: ``[Σx, Σx²]`` float32 ``[2C]``."""
-    _check_x(x, "none")
+    nhwc = _check_x(x, "none")
     lib = LIBRARY.load()
     aligned = _aligned(x)
     with trace.span("sedx.ops.bn_act"), torch.cuda.device(x.device):
-        part = _partials(lib, x, "none", aligned)
+        part = _partials(lib, x, "none", aligned, nhwc)
         out = torch.empty(2 * x.shape[1], dtype=torch.float32, device=x.device)
-        _check(lib.sedx_bn_stats(x.data_ptr(), _DTYPES[x.dtype], aligned,
+        _check(lib.sedx_bn_stats(x.data_ptr(), _DTYPES[x.dtype], aligned, nhwc,
                                  *x.shape, part.data_ptr(), out.data_ptr(),
-                                 nvcc.stream(x)), x, 2, "sedx_bn_stats")
+                                 nvcc.stream(x)),
+               x, 2, "sedx_bn_stats")
     return out
 
 
 def apply_cuda(x, a, b, act: str) -> torch.Tensor:
-    """K2: ``act(x·a + b)`` in x's dtype."""
-    _check_x(x, act)
+    """K2: ``act(x·a + b)`` in x's dtype and layout."""
+    nhwc = _check_x(x, act)
     _check_vec(a, x.shape[1], x, "a")
     _check_vec(b, x.shape[1], x, "b")
     lib = LIBRARY.load()
     with trace.span("sedx.ops.bn_act"), torch.cuda.device(x.device):
-        y = torch.empty(_out_shape(x, act), dtype=x.dtype, device=x.device)
+        y = torch.empty(_out_shape(x, act), dtype=x.dtype, device=x.device,
+                        memory_format=_format(nhwc))
         _check(lib.sedx_bn_apply(x.data_ptr(), _DTYPES[x.dtype], ACTS.index(act),
-                                 _aligned(x, y), a.data_ptr(), b.data_ptr(),
+                                 _aligned(x, y), nhwc, a.data_ptr(), b.data_ptr(),
                                  *x.shape, y.data_ptr(), nvcc.stream(x)),
                x, 1, "sedx_bn_apply")
     return y
@@ -322,28 +354,29 @@ def apply_cuda(x, a, b, act: str) -> torch.Tensor:
 
 def grad_stats_cuda(dy, x, a, b, act: str) -> torch.Tensor:
     """K3 and the combine: ``[Σg, Σg·x]`` float32 ``[2C]``."""
-    _check_x(x, act)
-    _check_same(dy, x, _out_shape(x, act), "dy")
+    nhwc = _check_x(x, act)
+    _check_same(dy, x, _out_shape(x, act), "dy", nhwc)
     _check_vec(a, x.shape[1], x, "a")
     _check_vec(b, x.shape[1], x, "b")
     lib = LIBRARY.load()
     aligned = _aligned(x, dy)
     with torch.cuda.device(x.device):
-        part = _partials(lib, x, act, aligned)
+        part = _partials(lib, x, act, aligned, nhwc)
         out = torch.empty(2 * x.shape[1], dtype=torch.float32, device=x.device)
         _check(lib.sedx_bn_grad_stats(dy.data_ptr(), x.data_ptr(), _DTYPES[x.dtype],
-                                      ACTS.index(act), aligned, a.data_ptr(),
-                                      b.data_ptr(), *x.shape, part.data_ptr(),
-                                      out.data_ptr(), nvcc.stream(x)),
+                                      ACTS.index(act), aligned, nhwc,
+                                      a.data_ptr(), b.data_ptr(), *x.shape,
+                                      part.data_ptr(), out.data_ptr(),
+                                      nvcc.stream(x)),
                x, 2, "sedx_bn_grad_stats")
     return out
 
 
 def grad_x_cuda(dy, x, a, b, gs, act: str) -> torch.Tensor:
     """K4 (and, for ``relu_pool`` on an odd plane, the dropped rows and
-    columns): ``dx = g·a + c₁ + c₂·x`` in x's dtype."""
-    _check_x(x, act)
-    _check_same(dy, x, _out_shape(x, act), "dy")
+    columns): ``dx = g·a + c₁ + c₂·x`` in x's dtype and layout."""
+    nhwc = _check_x(x, act)
+    _check_same(dy, x, _out_shape(x, act), "dy", nhwc)
     _check_vec(a, x.shape[1], x, "a")
     _check_vec(b, x.shape[1], x, "b")
     _check_vec(gs, 2 * x.shape[1], x, "gs")
@@ -351,9 +384,9 @@ def grad_x_cuda(dy, x, a, b, gs, act: str) -> torch.Tensor:
     t, f = x.shape[2:]
     tail = act == "relu_pool" and (t % 2 or f % 2)
     with torch.cuda.device(x.device):
-        dx = torch.empty_like(x)
+        dx = torch.empty_like(x, memory_format=_format(nhwc))
         _check(lib.sedx_bn_grad_x(dy.data_ptr(), x.data_ptr(), _DTYPES[x.dtype],
-                                  ACTS.index(act), _aligned(x, dy, dx),
+                                  ACTS.index(act), _aligned(x, dy, dx), nhwc,
                                   a.data_ptr(), b.data_ptr(), gs.data_ptr(),
                                   *x.shape, dx.data_ptr(), nvcc.stream(x)),
                x, 2 if tail else 1, "sedx_bn_grad_x")
@@ -423,7 +456,7 @@ class _Apply(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, dy):
         x, a, b = ctx.saved_tensors
-        dy = dy.contiguous()
+        dy = dy.contiguous(memory_format=_format(channels_last(x)))
         gsum, gxsum = _grad_stats(dy, x, a, b, ctx.link.act).chunk(2)
         if ctx.needs_input_grad[0]:
             ctx.link.saved = (dy, x, a, b)

@@ -8,8 +8,11 @@
 // conv-output element a step. These kernels move ~16 (relu, none) or ~11.5
 // (relu_pool), which is as close to the least I/O as four passes get.
 //
-// x is NCHW [B, C, T, F], contiguous, bf16 or f32; arithmetic is f32 and
-// each output is rounded once. Every pass is bound by device memory:
+// x is [B, C, T, F], bf16 or f32, contiguous NCHW or channels-last (the
+// conv stack's layout: cuDNN's bf16 convolutions are NHWC kernels); each
+// pass has a kernel for each layout, named with _nhwc for channels-last.
+// Arithmetic is f32 and each output is rounded once, in both. Every pass is
+// bound by device memory:
 //
 //   K1 sedx_bn_stats_kernel      x            -> per-block (Σx, Σx²)
 //   K3 sedx_bn_grad_stats_kernel dy, x        -> per-block (Σg, Σg·x)
@@ -25,12 +28,13 @@
 // and one block per channel combines them in a fixed order (no atomics), so
 // repeated runs and ranks agree bit for bit.
 //
-// Work is cut into units of N elements along a row (16 bytes when the
+// NCHW work is cut into units of N elements along a row (16 bytes when the
 // wrapper found every pointer 16-byte aligned and the rows allow it, else
 // one element; relu_pool units are N columns of two rows). Block (chunk, c)
 // takes kChunk units of channel c across the batch; each thread keeps
 // kUnroll 16-byte loads in flight before it uses them. The cut is made here
-// (make_cut); the wrapper asks only how many partials a channel takes.
+// (make_cut); the wrapper asks only how many partials a channel takes. The
+// channels-last cut (make_cut_nhwc) is described with its kernels below.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -455,6 +459,429 @@ __global__ void __launch_bounds__(kTailThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Channels-last: x [B, C, T, F] with strides (T·F·C, 1, F·C, C), so memory
+// holds a pixel's C channels side by side. These kernels are no NCHW kernel
+// with other offsets: a block takes a tile of pixels × Gt groups of N
+// channels (N of 16 bytes when the wrapper found every pointer aligned and
+// C splits into them, else 1). Thread (r, gi) owns group blockIdx.y·Gt + gi
+// for its whole life, so its a, b (and c1, c2) load once, and neighbouring
+// threads read neighbouring groups of one pixel's row. Row r of the block
+// walks pixels start + r, + R, ... with kUnroll raw loads in flight. K1 and
+// K3 sum each channel in registers, add the block's R rows in shared memory
+// in a fixed tree order and write one partial per (block, channel); the
+// finalize above adds them in a fixed order, as for NCHW.
+// ---------------------------------------------------------------------------
+
+constexpr int kGroupsMax = 32;  // channel groups a block
+constexpr int kSteps = 8;       // kUnroll-deep steps a pixel row takes a block
+
+struct GeomL {
+  int C, T, F, To, Fo;
+  int G;      // channel groups of N
+  int Gt;     // groups a block: min(G, kGroupsMax)
+  int R;      // pixel rows a block: kThreads / Gt
+  int npix;   // pixels a pass walks: B·T·F (flat) or B·To·Fo (relu_pool)
+  int chunk;  // pixels a block: R · kUnroll · kSteps
+};
+
+// N elements as loaded: one 16-byte load when VEC.
+template <typename T, int N>
+struct alignas(N * sizeof(T) >= 16 ? 16 : sizeof(T)) Pack {
+  T e[N];
+};
+
+template <typename T, int N, bool VEC>
+__device__ __forceinline__ void load_raw(const T* __restrict__ p,
+                                         Pack<T, N>& v) {
+  if constexpr (VEC) {
+    static_assert(N * sizeof(T) == 16, "a vector is 16 bytes");
+    *reinterpret_cast<uint4*>(v.e) = *reinterpret_cast<const uint4*>(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) v.e[i] = p[i];
+  }
+}
+
+// This thread's pixel row, its first channel, and whether it holds a group.
+struct Lane {
+  int r, c0;
+  bool on;
+};
+
+__device__ __forceinline__ Lane lane(const GeomL& g, int n) {
+  const int r = threadIdx.x / g.Gt;
+  const int grp = blockIdx.y * g.Gt + (threadIdx.x - r * g.Gt);
+  return {r, grp * n, r < g.R && grp < g.G};
+}
+
+// Offset of relu_pool output pixel p's window (its top-left input pixel);
+// the window's other three are C, F·C and F·C + C further.
+__device__ __forceinline__ long long window_offset(const GeomL& g, int p) {
+  const int per = g.To * g.Fo;
+  const int b = p / per;
+  const int e = p - b * per;
+  const int i = e / g.Fo;
+  const int j = e - i * g.Fo;
+  return (((long long)b * g.T + 2 * i) * g.F + 2 * j) * g.C;
+}
+
+// Sum s and q over the block's R pixel rows, in a fixed tree order; row 0
+// holds the result. Threads of no group hold zeros.
+template <int N>
+__device__ __forceinline__ void rows_sum(float (&s)[N], float (&q)[N],
+                                         const Lane& l, const GeomL& g) {
+  __shared__ float sh[2][N][kThreads];
+  const int t = threadIdx.x;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    sh[0][i][t] = s[i];
+    sh[1][i][t] = q[i];
+  }
+  __syncthreads();
+  int h = 1;
+  while (h < g.R) h <<= 1;
+  for (h >>= 1; h > 0; h >>= 1) {
+    if (l.r < h && l.r + h < g.R) {
+      const int o = t + h * g.Gt;
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        sh[0][i][t] += sh[0][i][o];
+        sh[1][i][t] += sh[1][i][o];
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s[i] = sh[0][i][t];
+    q[i] = sh[1][i][t];
+  }
+}
+
+// Row 0's sums as the block's partial of each of its channels.
+template <int N>
+__device__ __forceinline__ void write_partials(const float (&s)[N],
+                                               const float (&q)[N],
+                                               const Lane& l,
+                                               float2* __restrict__ part) {
+  if (!l.on || l.r != 0) return;
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    part[(long long)(l.c0 + i) * gridDim.x + blockIdx.x] =
+        make_float2(s[i], q[i]);
+}
+
+// The [C] vectors of this thread's channels.
+template <int N>
+__device__ __forceinline__ void load_vec(const float* __restrict__ v,
+                                         const Lane& l, float (&out)[N],
+                                         float scale = 1.f, int shift = 0) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = l.on ? scale * v[shift + l.c0 + i] : 0.f;
+}
+
+// K1, channels-last: per-block (Σx, Σx²) of each channel of the block's tile.
+template <typename T, int N, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    sedx_bn_stats_nhwc_kernel(const T* __restrict__ x, GeomL g,
+                              float2* __restrict__ part) {
+  const Lane l = lane(g, N);
+  const int start = blockIdx.x * g.chunk;
+  const int end = min(start + g.chunk, g.npix);
+  float s[N], q[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = q[i] = 0.f;
+  if (l.on) {
+    for (int p0 = start + l.r; p0 < end; p0 += kUnroll * g.R) {
+      Pack<T, N> v[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int p = p0 + k * g.R;
+        if (p < end) {
+          load_raw<T, N, VEC>(x + (long long)p * g.C + l.c0, v[k]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < N; ++i) v[k].e[i] = from_f<T>(0.f);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float xv = to_f(v[k].e[i]);
+          s[i] += xv;
+          q[i] = fmaf(xv, xv, q[i]);
+        }
+      }
+    }
+  }
+  rows_sum<N>(s, q, l, g);
+  write_partials<N>(s, q, l, part);
+}
+
+// K3, channels-last: per-block (Σg, Σg·x) of each channel of the tile, g the
+// gradient at z. relu_pool walks output pixels: one dy vector and its
+// window's four x vectors, in avg_pool2d's order.
+template <typename T, int ACT, int N, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    sedx_bn_grad_stats_nhwc_kernel(const T* __restrict__ dy,
+                                   const T* __restrict__ x,
+                                   const float* __restrict__ a,
+                                   const float* __restrict__ b, GeomL g,
+                                   float2* __restrict__ part) {
+  const Lane l = lane(g, N);
+  float ac[N], bc[N], s[N], q[N];
+  load_vec<N>(a, l, ac);
+  load_vec<N>(b, l, bc);
+#pragma unroll
+  for (int i = 0; i < N; ++i) s[i] = q[i] = 0.f;
+  const int start = blockIdx.x * g.chunk;
+  const int end = min(start + g.chunk, g.npix);
+  if (l.on) {
+    for (int p0 = start + l.r; p0 < end; p0 += kUnroll * g.R) {
+      if constexpr (ACT == kReluPool) {
+        Pack<T, N> xw[kUnroll][4], d[kUnroll];
+        const long long row = (long long)g.F * g.C;
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const int p = p0 + k * g.R;
+          if (p < end) {
+            const long long in = window_offset(g, p) + l.c0;
+            load_raw<T, N, VEC>(x + in, xw[k][0]);
+            load_raw<T, N, VEC>(x + in + g.C, xw[k][1]);
+            load_raw<T, N, VEC>(x + in + row, xw[k][2]);
+            load_raw<T, N, VEC>(x + in + row + g.C, xw[k][3]);
+            load_raw<T, N, VEC>(dy + (long long)p * g.C + l.c0, d[k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          if (p0 + k * g.R >= end) continue;
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const float dd = 0.25f * to_f(d[k].e[i]);
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              const float xv = to_f(xw[k][w].e[i]);
+              const float gg = fmaf(xv, ac[i], bc[i]) > 0.f ? dd : 0.f;
+              s[i] += gg;
+              q[i] = fmaf(gg, xv, q[i]);
+            }
+          }
+        }
+      } else {
+        Pack<T, N> xv[kUnroll], dv[kUnroll];
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const int p = p0 + k * g.R;
+          if (p < end) {
+            const long long off = (long long)p * g.C + l.c0;
+            load_raw<T, N, VEC>(x + off, xv[k]);
+            load_raw<T, N, VEC>(dy + off, dv[k]);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          if (p0 + k * g.R >= end) continue;
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const float xf = to_f(xv[k].e[i]);
+            float gg = to_f(dv[k].e[i]);
+            if constexpr (ACT == kRelu)
+              gg = fmaf(xf, ac[i], bc[i]) > 0.f ? gg : 0.f;
+            s[i] += gg;
+            q[i] = fmaf(gg, xf, q[i]);
+          }
+        }
+      }
+    }
+  }
+  rows_sum<N>(s, q, l, g);
+  write_partials<N>(s, q, l, part);
+}
+
+// K2, channels-last: y = act(x·a + b); relu_pool reads a window's four
+// vectors and writes one.
+template <typename T, int ACT, int N, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    sedx_bn_apply_nhwc_kernel(const T* __restrict__ x,
+                              const float* __restrict__ a,
+                              const float* __restrict__ b, GeomL g,
+                              T* __restrict__ y) {
+  const Lane l = lane(g, N);
+  if (!l.on) return;
+  float ac[N], bc[N];
+  load_vec<N>(a, l, ac);
+  load_vec<N>(b, l, bc);
+  const int start = blockIdx.x * g.chunk;
+  const int end = min(start + g.chunk, g.npix);
+  for (int p0 = start + l.r; p0 < end; p0 += kUnroll * g.R) {
+    if constexpr (ACT == kReluPool) {
+      Pack<T, N> xw[kUnroll][4];
+      const long long row = (long long)g.F * g.C;
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int p = p0 + k * g.R;
+        if (p < end) {
+          const long long in = window_offset(g, p) + l.c0;
+          load_raw<T, N, VEC>(x + in, xw[k][0]);
+          load_raw<T, N, VEC>(x + in + g.C, xw[k][1]);
+          load_raw<T, N, VEC>(x + in + row, xw[k][2]);
+          load_raw<T, N, VEC>(x + in + row + g.C, xw[k][3]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int p = p0 + k * g.R;
+        if (p >= end) continue;
+        float o[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          // the window in avg_pool2d's order: row 0 left, right, row 1
+          float t = relu(fmaf(to_f(xw[k][0].e[i]), ac[i], bc[i]));
+          t += relu(fmaf(to_f(xw[k][1].e[i]), ac[i], bc[i]));
+          t += relu(fmaf(to_f(xw[k][2].e[i]), ac[i], bc[i]));
+          t += relu(fmaf(to_f(xw[k][3].e[i]), ac[i], bc[i]));
+          o[i] = 0.25f * t;
+        }
+        store<T, N, VEC>(y + (long long)p * g.C + l.c0, o);
+      }
+    } else {
+      Pack<T, N> v[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int p = p0 + k * g.R;
+        if (p < end) load_raw<T, N, VEC>(x + (long long)p * g.C + l.c0, v[k]);
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int p = p0 + k * g.R;
+        if (p >= end) continue;
+        float o[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float z = fmaf(to_f(v[k].e[i]), ac[i], bc[i]);
+          o[i] = ACT == kRelu ? relu(z) : z;
+        }
+        store<T, N, VEC>(y + (long long)p * g.C + l.c0, o);
+      }
+    }
+  }
+}
+
+// K4, channels-last: dx = g·a + c1 + c2·x; relu_pool writes a window's four
+// vectors from one dy vector (the pixels a floor pool drops: the tail).
+template <typename T, int ACT, int N, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    sedx_bn_grad_x_nhwc_kernel(const T* __restrict__ dy,
+                               const T* __restrict__ x,
+                               const float* __restrict__ a,
+                               const float* __restrict__ b,
+                               const float* __restrict__ gs, GeomL g,
+                               T* __restrict__ dx) {
+  const Lane l = lane(g, N);
+  if (!l.on) return;
+  float ac[N], bc[N], c1[N], c2[N];
+  load_vec<N>(a, l, ac);
+  load_vec<N>(b, l, bc);
+  load_vec<N>(gs, l, c1);
+  load_vec<N>(gs, l, c2, 2.f, g.C);
+  const int start = blockIdx.x * g.chunk;
+  const int end = min(start + g.chunk, g.npix);
+  for (int p0 = start + l.r; p0 < end; p0 += kUnroll * g.R) {
+    if constexpr (ACT == kReluPool) {
+      Pack<T, N> xw[kUnroll][4], d[kUnroll];
+      long long in[kUnroll];
+      const long long row = (long long)g.F * g.C;
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int p = p0 + k * g.R;
+        if (p < end) {
+          in[k] = window_offset(g, p) + l.c0;
+          load_raw<T, N, VEC>(x + in[k], xw[k][0]);
+          load_raw<T, N, VEC>(x + in[k] + g.C, xw[k][1]);
+          load_raw<T, N, VEC>(x + in[k] + row, xw[k][2]);
+          load_raw<T, N, VEC>(x + in[k] + row + g.C, xw[k][3]);
+          load_raw<T, N, VEC>(dy + (long long)p * g.C + l.c0, d[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        if (p0 + k * g.R >= end) continue;
+        const long long offs[4] = {in[k], in[k] + g.C, in[k] + row,
+                                   in[k] + row + g.C};
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          float o[N];
+#pragma unroll
+          for (int i = 0; i < N; ++i) {
+            const float xv = to_f(xw[k][w].e[i]);
+            const float gg =
+                fmaf(xv, ac[i], bc[i]) > 0.f ? 0.25f * to_f(d[k].e[i]) : 0.f;
+            o[i] = fmaf(gg, ac[i], fmaf(c2[i], xv, c1[i]));
+          }
+          store<T, N, VEC>(dx + offs[w], o);
+        }
+      }
+    } else {
+      Pack<T, N> xv[kUnroll], dv[kUnroll];
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int p = p0 + k * g.R;
+        if (p < end) {
+          const long long off = (long long)p * g.C + l.c0;
+          load_raw<T, N, VEC>(x + off, xv[k]);
+          load_raw<T, N, VEC>(dy + off, dv[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kUnroll; ++k) {
+        const int p = p0 + k * g.R;
+        if (p >= end) continue;
+        float o[N];
+#pragma unroll
+        for (int i = 0; i < N; ++i) {
+          const float xf = to_f(xv[k].e[i]);
+          float gg = to_f(dv[k].e[i]);
+          if constexpr (ACT == kRelu)
+            gg = fmaf(xf, ac[i], bc[i]) > 0.f ? gg : 0.f;
+          o[i] = fmaf(gg, ac[i], fmaf(c2[i], xf, c1[i]));
+        }
+        store<T, N, VEC>(dx + (long long)p * g.C + l.c0, o);
+      }
+    }
+  }
+}
+
+// dx = c1 + c2·x on the pixels a floor pool drops, channels-last: row T-1
+// when T is odd, column F-1 (of the kept rows) when F is odd. Row r of
+// block bx takes dropped pixel bx·R + r, of `dropped` in all.
+template <typename T, int N, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+    sedx_bn_grad_x_tail_nhwc_kernel(const T* __restrict__ x,
+                                    const float* __restrict__ gs, GeomL g,
+                                    int dropped, T* __restrict__ dx) {
+  const Lane l = lane(g, N);
+  const int k = blockIdx.x * g.R + l.r;
+  if (!l.on || k >= dropped) return;
+  const int rows = (g.T - 2 * g.To) * g.F;
+  const int per = rows + (g.F - 2 * g.Fo) * 2 * g.To;
+  const int b = k / per;
+  const int e = k - b * per;
+  const int t = e < rows ? 2 * g.To : e - rows;
+  const int f = e < rows ? e : 2 * g.Fo;
+  const long long off = (((long long)b * g.T + t) * g.F + f) * g.C + l.c0;
+  float c1[N], c2[N], o[N];
+  load_vec<N>(gs, l, c1);
+  load_vec<N>(gs, l, c2, 2.f, g.C);
+  Pack<T, N> v;
+  load_raw<T, N, VEC>(x + off, v);
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] = fmaf(c2[i], to_f(v.e[i]), c1[i]);
+  store<T, N, VEC>(dx + off, o);
+}
+
 // The unit width N of each path: 16 bytes when vectorised, else one element
 // (flat) or one column pair (relu_pool).
 template <typename T>
@@ -590,6 +1017,103 @@ int make_cut(int B, int C, int T, int F, int dtype, int act, int aligned,
   return 0;
 }
 
+// The channels-last cut: the geometry, whether it takes the 16-byte path
+// (`aligned` and C a whole number of 16-byte groups) and its grid: blocks of
+// pixels × tiles of channel groups. K1 takes the flat cut whatever the
+// epilogue; relu_pool's K2-K4 walk output pixels.
+struct CutL {
+  GeomL g;
+  bool vec;
+  dim3 grid;
+  int dropped;  // pixels a floor pool drops (relu_pool's tail)
+};
+
+int make_cut_nhwc(int B, int C, int T, int F, int dtype, int act,
+                  int aligned, CutL& cut) {
+  if (dtype != kF32 && dtype != kBF16) return kErrDtype;
+  if (act != kNone && act != kRelu && act != kReluPool) return kErrDtype;
+  const int vn = dtype == kF32 ? vec_n<float>() : vec_n<__nv_bfloat16>();
+  // pixels (and the tail's dropped pixels) stay below the int index
+  if ((long long)B * T * F >= kMaxUnits) return kErrUnits;
+  cut.vec = aligned && C % vn == 0;
+  const int n = cut.vec ? vn : 1;
+  GeomL& g = cut.g;
+  g.C = C;
+  g.T = T;
+  g.F = F;
+  g.To = T / 2;
+  g.Fo = F / 2;
+  g.G = C / n;
+  g.Gt = min(g.G, kGroupsMax);
+  g.R = kThreads / g.Gt;
+  g.npix = act == kReluPool ? B * g.To * g.Fo : B * T * F;
+  g.chunk = g.R * kUnroll * kSteps;
+  cut.grid = dim3((g.npix + g.chunk - 1) / g.chunk, (g.G + g.Gt - 1) / g.Gt);
+  cut.dropped = B * (T * F - 4 * g.To * g.Fo);
+  return 0;
+}
+
+struct StatsNhwcLaunch {
+  const void* x;
+  const CutL& cut;
+  float2* part;
+  cudaStream_t s;
+  template <typename T, int ACT, int N, bool VEC>
+  void run() const {
+    sedx_bn_stats_nhwc_kernel<T, VEC ? N : 1, VEC>
+        <<<cut.grid, kThreads, 0, s>>>(static_cast<const T*>(x), cut.g, part);
+  }
+};
+
+struct ApplyNhwcLaunch {
+  const void* x;
+  const float *a, *b;
+  const CutL& cut;
+  void* y;
+  cudaStream_t s;
+  template <typename T, int ACT, int N, bool VEC>
+  void run() const {
+    sedx_bn_apply_nhwc_kernel<T, ACT, VEC ? N : 1, VEC>
+        <<<cut.grid, kThreads, 0, s>>>(static_cast<const T*>(x), a, b, cut.g,
+                                       static_cast<T*>(y));
+  }
+};
+
+struct GradStatsNhwcLaunch {
+  const void *dy, *x;
+  const float *a, *b;
+  const CutL& cut;
+  float2* part;
+  cudaStream_t s;
+  template <typename T, int ACT, int N, bool VEC>
+  void run() const {
+    sedx_bn_grad_stats_nhwc_kernel<T, ACT, VEC ? N : 1, VEC>
+        <<<cut.grid, kThreads, 0, s>>>(static_cast<const T*>(dy),
+                                       static_cast<const T*>(x), a, b, cut.g,
+                                       part);
+  }
+};
+
+struct GradXNhwcLaunch {
+  const void *dy, *x;
+  const float *a, *b, *gs;
+  const CutL& cut;
+  void* dx;
+  cudaStream_t s;
+  template <typename T, int ACT, int N, bool VEC>
+  void run() const {
+    constexpr int M = VEC ? N : 1;
+    sedx_bn_grad_x_nhwc_kernel<T, ACT, M, VEC><<<cut.grid, kThreads, 0, s>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(x), a, b, gs, cut.g,
+        static_cast<T*>(dx));
+    if (ACT == kReluPool && cut.dropped > 0)
+      sedx_bn_grad_x_tail_nhwc_kernel<T, M, VEC>
+          <<<dim3((cut.dropped + cut.g.R - 1) / cut.g.R, cut.grid.y),
+             kThreads, 0, s>>>(static_cast<const T*>(x), gs, cut.g,
+                               cut.dropped, static_cast<T*>(dx));
+  }
+};
+
 int last_error() { return (int)cudaGetLastError(); }
 
 }  // namespace
@@ -603,75 +1127,121 @@ const char* sedx_bn_error_string(int code) {
 }
 
 // Each entry takes x's shape [B, C, T, F], `aligned` (every pointer it is
-// given is 16-byte aligned), launches on `stream` and returns
-// cudaGetLastError() (0 on success), or a negative code for a dtype,
+// given is 16-byte aligned), `nhwc` (x, and every tensor of x's shape or of
+// its pooled shape, is channels-last; else NCHW), launches on `stream` and
+// returns cudaGetLastError() (0 on success), or a negative code for a dtype,
 // activation or size it does not take.
 
 // The partials a channel of K1 (act 0) or K3 writes: `part` of
 // sedx_bn_stats and sedx_bn_grad_stats holds C times this many float2.
 int sedx_bn_partials(int B, int C, int T, int F, int dtype, int act,
-                     int aligned) {
+                     int aligned, int nhwc) {
+  if (nhwc) {
+    CutL cut;
+    const int rc = make_cut_nhwc(B, C, T, F, dtype, act, aligned, cut);
+    return rc ? rc : (int)cut.grid.x;
+  }
   Cut cut;
   const int rc = make_cut(B, C, T, F, dtype, act, aligned, cut);
   return rc ? rc : cut.nchunk;
 }
 
 // K1 + finalize: out[2C] = (Σx, Σx²) per channel.
-int sedx_bn_stats(const void* x, int dtype, int aligned, int B, int C, int T,
-                  int F, void* part, float* out, void* stream) {
-  Cut cut;
-  int rc = make_cut(B, C, T, F, dtype, kNone, aligned, cut);
-  if (rc) return rc;
+int sedx_bn_stats(const void* x, int dtype, int aligned, int nhwc, int B,
+                  int C, int T, int F, void* part, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* p = static_cast<float2*>(part);
-  rc = dispatch(dtype, kNone, cut.vec,
-                StatsLaunch{x, cut.g, cut.nchunk, p, s});
+  int n, rc;
+  if (nhwc) {
+    CutL cut;
+    rc = make_cut_nhwc(B, C, T, F, dtype, kNone, aligned, cut);
+    if (rc) return rc;
+    n = (int)cut.grid.x;
+    rc = dispatch(dtype, kNone, cut.vec, StatsNhwcLaunch{x, cut, p, s});
+  } else {
+    Cut cut;
+    rc = make_cut(B, C, T, F, dtype, kNone, aligned, cut);
+    if (rc) return rc;
+    n = cut.nchunk;
+    rc = dispatch(dtype, kNone, cut.vec,
+                  StatsLaunch{x, cut.g, cut.nchunk, p, s});
+  }
   if (rc) return rc;
-  sedx_bn_finalize_kernel<<<C, kThreads, 0, s>>>(p, cut.nchunk, C, out);
+  sedx_bn_finalize_kernel<<<C, kThreads, 0, s>>>(p, n, C, out);
   return last_error();
 }
 
 // K2: y = act(x·a + b) (relu_pool: pooled [B, C, T/2, F/2]).
-int sedx_bn_apply(const void* x, int dtype, int act, int aligned,
+int sedx_bn_apply(const void* x, int dtype, int act, int aligned, int nhwc,
                   const float* a, const float* b, int B, int C, int T, int F,
                   void* y, void* stream) {
-  Cut cut;
-  int rc = make_cut(B, C, T, F, dtype, act, aligned, cut);
-  if (rc) return rc;
-  rc = dispatch(dtype, act, cut.vec,
-                ApplyLaunch{x, a, b, cut.g, cut.nchunk, y,
-                            static_cast<cudaStream_t>(stream)});
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (nhwc) {
+    CutL cut;
+    rc = make_cut_nhwc(B, C, T, F, dtype, act, aligned, cut);
+    if (rc) return rc;
+    rc = dispatch(dtype, act, cut.vec, ApplyNhwcLaunch{x, a, b, cut, y, s});
+  } else {
+    Cut cut;
+    rc = make_cut(B, C, T, F, dtype, act, aligned, cut);
+    if (rc) return rc;
+    rc = dispatch(dtype, act, cut.vec,
+                  ApplyLaunch{x, a, b, cut.g, cut.nchunk, y, s});
+  }
   return rc ? rc : last_error();
 }
 
 // K3 + finalize: out[2C] = (Σg, Σg·x) per channel.
 int sedx_bn_grad_stats(const void* dy, const void* x, int dtype, int act,
-                       int aligned, const float* a, const float* b, int B,
-                       int C, int T, int F, void* part, float* out,
+                       int aligned, int nhwc, const float* a, const float* b,
+                       int B, int C, int T, int F, void* part, float* out,
                        void* stream) {
-  Cut cut;
-  int rc = make_cut(B, C, T, F, dtype, act, aligned, cut);
-  if (rc) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* p = static_cast<float2*>(part);
-  rc = dispatch(dtype, act, cut.vec,
-                GradStatsLaunch{dy, x, a, b, cut.g, cut.nchunk, p, s});
+  int n, rc;
+  if (nhwc) {
+    CutL cut;
+    rc = make_cut_nhwc(B, C, T, F, dtype, act, aligned, cut);
+    if (rc) return rc;
+    n = (int)cut.grid.x;
+    rc = dispatch(dtype, act, cut.vec,
+                  GradStatsNhwcLaunch{dy, x, a, b, cut, p, s});
+  } else {
+    Cut cut;
+    rc = make_cut(B, C, T, F, dtype, act, aligned, cut);
+    if (rc) return rc;
+    n = cut.nchunk;
+    rc = dispatch(dtype, act, cut.vec,
+                  GradStatsLaunch{dy, x, a, b, cut.g, cut.nchunk, p, s});
+  }
   if (rc) return rc;
-  sedx_bn_finalize_kernel<<<C, kThreads, 0, s>>>(p, cut.nchunk, C, out);
+  sedx_bn_finalize_kernel<<<C, kThreads, 0, s>>>(p, n, C, out);
   return last_error();
 }
 
-// K4 (+ the tail for relu_pool on an odd T or F, one block a plane): dx.
+// K4 (+ the tail for relu_pool on an odd T or F: one block a plane for
+// NCHW, R dropped pixels a block for channels-last): dx.
 int sedx_bn_grad_x(const void* dy, const void* x, int dtype, int act,
-                   int aligned, const float* a, const float* b,
+                   int aligned, int nhwc, const float* a, const float* b,
                    const float* gs, int B, int C, int T, int F, void* dx,
                    void* stream) {
-  Cut cut;
-  int rc = make_cut(B, C, T, F, dtype, act, aligned, cut);
-  if (rc) return rc;
-  rc = dispatch(dtype, act, cut.vec,
-                GradXLaunch{dy, x, a, b, gs, cut.g, cut.nchunk, B * C, dx,
-                            static_cast<cudaStream_t>(stream)});
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc;
+  if (nhwc) {
+    CutL cut;
+    rc = make_cut_nhwc(B, C, T, F, dtype, act, aligned, cut);
+    if (rc) return rc;
+    rc = dispatch(dtype, act, cut.vec,
+                  GradXNhwcLaunch{dy, x, a, b, gs, cut, dx, s});
+  } else {
+    Cut cut;
+    rc = make_cut(B, C, T, F, dtype, act, aligned, cut);
+    if (rc) return rc;
+    rc = dispatch(dtype, act, cut.vec,
+                  GradXLaunch{dy, x, a, b, gs, cut.g, cut.nchunk, B * C, dx,
+                              s});
+  }
   return rc ? rc : last_error();
 }
 

@@ -38,7 +38,10 @@ counter of the port: ``ops.logmel.launches`` and
 ``ops.stft.logmel.calls`` and ``ops.stft.logmel_bank.calls`` (the plain
 frontends' calls), ``ops.bn_act.calls``, ``ops.bn_act.plain_calls`` and
 ``ops.bn_act.launches`` (train-mode BatchNorm calls on the kernels and on
-the composite, and the kernels' launches), ``ops.window_attention.calls``,
+the composite, and the kernels' launches), ``ops.bn_act.channels_last_calls``
+(the fused calls on a channels-last ``x``, which take the channels-last
+kernels: 8 a crnn step, 16 a GLU step, 0 an HTS-AT step),
+``ops.window_attention.calls``,
 ``ops.window_attention.windows`` and ``ops.window_attention.shifted_calls``
 (the core's forwards, its window-heads, and its forwards with a shift mask:
 12, 1,216 a clip and 5 a forward of the published HTS-AT; a CUDA graph's

@@ -22,7 +22,13 @@ arithmetic and the hand-written backward formulas:
 * the module imports, and refuses a CPU tensor, without nvcc or a GPU; the
   CPU's train step takes the composite (``ops.bn_act.calls`` stays 0), and
   ``ConvBlock`` on the CPU gives the bits it gave before the epilogues
-  moved into ``BatchNorm``.
+  moved into ``BatchNorm``;
+* the channels-last conv stack: the plain versions and the fused path on a
+  channels-last ``x`` give the NCHW results and keep the layout; dropout
+  applies the NCHW draw in ``x``'s layout; a crnn and a GLU train step keep
+  every activation and gradient of the stack channels-last, count 8 and
+  16 ``ops.bn_act.channels_last_calls`` a forward and equal the NCHW
+  stack; HTS-AT's ``bn0`` stays NCHW.
 """
 
 import os
@@ -35,9 +41,10 @@ import torch
 import torch.nn.functional as F
 
 from sound_event_detection_dcase2017_task4_torch import trace, train
-from sound_event_detection_dcase2017_task4_torch.models import get_model
+from sound_event_detection_dcase2017_task4_torch.models import SedCnn, get_model
+from sound_event_detection_dcase2017_task4_torch.models import blocks
 from sound_event_detection_dcase2017_task4_torch.models.blocks import (
-    BatchNorm, ConvBlock)
+    BatchNorm, ConvBlock, conv3x3)
 from sound_event_detection_dcase2017_task4_torch.ops import bn_act
 
 import torch_parallel_worker as worker
@@ -349,11 +356,173 @@ def test_conv_block_on_the_cpu_gives_the_bits_of_relu_then_pool(train_mode):
     clone = ConvBlock(3, 6)
     clone.load_state_dict(block.state_dict())
     got = block(x, train_mode)
-    # the block as it was written before its BatchNorms took the epilogue
+    # the block as it was written before its BatchNorms took the epilogue,
+    # on the block's channels-last convs
     h = x
     for conv, bn in zip(clone.convs, clone.bns):
-        h = F.relu(bn(F.conv2d(h, conv.weight, padding=1), train_mode))
+        h = F.relu(bn(conv3x3(h, conv.weight, torch.float32), train_mode))
     want = F.avg_pool2d(h, (2, 2))
     assert torch.equal(got, want)
     for k, v in block.state_dict().items():
         assert torch.equal(v, clone.state_dict()[k]), k
+
+
+# --- the channels-last conv stack ------------------------------------------------
+
+CL = torch.channels_last
+
+
+def _cl(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous(memory_format=CL)
+
+
+LAYOUT_CASES = [(s, a) for s in SHAPES for a in ACTS
+                if not (a == "relu_pool" and min(s[2:]) < 2)]
+
+
+@pytest.mark.parametrize("shape,act", LAYOUT_CASES,
+                         ids=[f"{'x'.join(map(str, s))}-{a}" for s, a in LAYOUT_CASES])
+def test_channels_last_gives_the_nchw_results(shape, act):
+    """The plain versions and the fused path on a channels-last ``x`` (and
+    ``dy``) give the NCHW results in float64, odd planes and an odd C
+    included, and their outputs keep ``x``'s layout."""
+    bn, nchw = _bn(shape[1]), _bn(shape[1])
+    x, dy = _inputs(shape, act, bn)
+    xc, dyc = _cl(x), _cl(dy)
+    assert bn_act.channels_last(xc) and not bn_act.channels_last(x)
+    a, b, gs = (t.double() for t in bn_act.sums_grad(
+        x, dy, bn.weight.detach(), bn.bias.detach(), act, rows=1))
+    plain = {"sums": (bn_act.stats_plain(xc), bn_act.stats_plain(x)),
+             "y": (bn_act.apply_plain(xc, a, b, act),
+                   bn_act.apply_plain(x, a, b, act)),
+             "grad_sums": (bn_act.grad_stats_plain(dyc, xc, a, b, act),
+                           bn_act.grad_stats_plain(dy, x, a, b, act)),
+             "dx": (bn_act.grad_x_plain(dyc, xc, a, b, gs, act),
+                    bn_act.grad_x_plain(dy, x, a, b, gs, act))}
+    _close({k: g for k, (g, _) in plain.items()},
+           {k: w for k, (_, w) in plain.items()}, 1e-12)
+    assert plain["y"][0].is_contiguous(memory_format=CL)
+    assert plain["dx"][0].is_contiguous(memory_format=CL)
+    got, want = _run(bn, xc, dyc, act, True), _run(nchw, x, dy, act, True)
+    _close(got, want, 1e-12)
+    assert got["y"].is_contiguous(memory_format=CL)
+    assert bn_act.channels_last(got["dx"])
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 9, 5), (3, 16, 4, 4)])
+def test_dropout_applies_the_nchw_draw_in_x_layout(shape):
+    """Dropout on a channels-last ``x`` applies ``torch.rand(shape) <
+    threshold/65536`` element for element, as on NCHW, and keeps the
+    layout."""
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    y0 = blocks.dropout(x, 0.2, True, torch.Generator().manual_seed(7))
+    y1 = blocks.dropout(_cl(x), 0.2, True, torch.Generator().manual_seed(7))
+    assert bn_act.channels_last(y1)
+    assert torch.equal(y1, y0)
+    keep = (torch.rand(shape, generator=torch.Generator().manual_seed(7))
+            < blocks._threshold(0.2) / 65536.0)
+    assert 0 < int(keep.sum()) < keep.numel()
+    assert torch.equal(y1 != 0, keep)
+
+
+STACKS = {"crnn": (dict(channels=(8, 16, 16, 8), seq="gru", gru_hidden=8), 8),
+          "glu": (dict(channels=(8, 8, 8, 8), block="glu"), 16)}
+
+
+def _fused_on_the_cpu(monkeypatch):
+    """Train-mode BatchNorm on the fused path, whose plain versions run on
+    the CPU, as the kernels run on a card."""
+    monkeypatch.setattr(BatchNorm, "forward",
+                        lambda self, x, train=False, mesh=None, act="none":
+                        self._forward(x, train, mesh, act, train))
+
+
+def _stack_step(model, x):
+    """A train forward and backward: the outputs, every parameter's
+    gradient, and the layout seen at each point of the conv stack: the
+    output of each block, its dropout and each BatchNorm, the input of each
+    BatchNorm, and the gradient at each block's and BatchNorm's output."""
+    seen, hooks = [], []
+
+    def watch(name, grads=True):
+        def hook(mod, args, out):
+            seen.append((f"{name} out", out.is_contiguous(memory_format=CL)))
+            if isinstance(mod, BatchNorm):
+                seen.append((f"{name} in", bn_act.channels_last(args[0])))
+            if grads:
+                out.register_hook(lambda g: seen.append(
+                    (f"{name} grad", bn_act.channels_last(g))))
+        return hook
+
+    for i, (block, drop) in enumerate(zip(model.blocks, model.dropouts)):
+        hooks.append(block.register_forward_hook(watch(f"block {i}")))
+        # the last dropout's gradient is the stack-end mean's broadcast
+        hooks.append(drop.register_forward_hook(watch(f"dropout {i}", False)))
+        for n, m in block.named_modules():
+            if isinstance(m, BatchNorm):
+                hooks.append(m.register_forward_hook(watch(f"block {i} {n}")))
+    out = model(x, train=True, generator=torch.Generator().manual_seed(5))
+    (out["clipwise_output"].sum() + out["framewise_output"].mean()).backward()
+    for h in hooks:
+        h.remove()
+    got = {k: out[k].detach() for k in ("clipwise_output", "framewise_output",
+                                        "embedding")}
+    got.update({n: p.grad for n, p in model.named_parameters()})
+    return got, seen
+
+
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "composite"])
+@pytest.mark.parametrize("family", sorted(STACKS))
+def test_the_conv_stack_stays_channels_last_and_equals_nchw(monkeypatch, family,
+                                                            fused):
+    """A crnn and a GLU ``SedCnn`` train step (forward and backward) keep
+    every activation of the conv stack and its gradient channels-last, on
+    the fused path (``ops.bn_act.channels_last_calls``: 8 and 16 a
+    forward) and on the composite, and equal the NCHW stack (NCHW convs)
+    to float32 tolerance."""
+    kw, n_bn = STACKS[family]
+    if fused:
+        _fused_on_the_cpu(monkeypatch)
+    model = SedCnn(generator=torch.Generator().manual_seed(0), **kw)
+    twin = SedCnn(**kw)
+    twin.load_state_dict(model.state_dict())
+    x = torch.randn(3, 64, 32, generator=torch.Generator().manual_seed(1))
+    before = trace.counters()
+    got, seen = _stack_step(model, x)
+    after = trace.counters()
+    key = "ops.bn_act.channels_last_calls"
+    assert after.get(key, 0) - before.get(key, 0) == (n_bn if fused else 0)
+    assert len(seen) == 4 * 2 + n_bn * 3 + 4, seen
+    assert all(ok for _, ok in seen), [k for k, ok in seen if not ok]
+    monkeypatch.setattr(blocks, "conv3x3", lambda x, w, dt: F.conv2d(
+        x.to(dt, memory_format=torch.contiguous_format), w.to(dt), padding=1))
+    want, seen = _stack_step(twin, x)
+    assert not any(ok for k, ok in seen if k.endswith(" in"))
+    assert trace.counters().get(key, 0) == after.get(key, 0)
+    assert set(got) == set(want)
+    # each within 2e-5 of its largest magnitude; a leaf under 1e-3 of the
+    # median leaf's (the attention logits' bias, shared by the softmax's
+    # time steps, whose gradient is 0 but for rounding) only stays under it
+    floor = 1e-3 * float(torch.tensor([w.abs().max() for w in want.values()]).median())
+    small = {k for k, w in want.items() if float(w.abs().max()) < floor}
+    assert small <= {"att_block.att.bias"}, small
+    assert all(float(got[k].abs().max()) < floor for k in small)
+    _close({k: got[k] for k in want if k not in small},
+           {k: w for k, w in want.items() if k not in small}, 2e-5)
+
+
+def test_htsat_bn0_keeps_the_nchw_kernels(monkeypatch):
+    """HTS-AT's ``bn0`` takes an NCHW ``[B, mel, T, 1]``: a train forward
+    makes one fused call and no channels-last one."""
+    from sound_event_detection_dcase2017_task4_torch.models.htsat import HTSAT
+
+    _fused_on_the_cpu(monkeypatch)
+    model = HTSAT(classes_num=5, spec_size=64, mel_bins=16, patch=4, window=4,
+                  embed=16, depths=(2, 2), heads=(2, 4))
+    x = torch.randn(2, 250, 16, generator=torch.Generator().manual_seed(1))
+    before = trace.counters()
+    model(x, train=True, generator=torch.Generator().manual_seed(2))
+    after = trace.counters()
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in (
+        "ops.bn_act.calls", "ops.bn_act.channels_last_calls")} == {
+        "ops.bn_act.calls": 1, "ops.bn_act.channels_last_calls": 0}

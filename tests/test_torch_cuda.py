@@ -15,9 +15,13 @@ kernel as the CPU does; the data-parallel step under a 1-rank NCCL group
 equals the step with no group; ``examples.minimal_train`` with no device
 trains through the waveform kernel. The train-mode BatchNorm kernels
 (``ops.bn_act``) are held to their plain versions at every block shape of
-the flagship and the GLU, refuse what they do not take, run 8 and 16
-times a step in those models with no composite call, and keep the running
-statistics to one move a step under the GLU's ``remat``; HTS-AT's train
+the flagship and the GLU in both layouts (NCHW and channels-last), refuse
+what they do not take, run 8 and 16 times a step in those models with no
+composite call, all of them on the channels-last kernels, and keep the
+running statistics to one move a step under the GLU's ``remat``; a
+profiled step of either model runs cuDNN's NCHW↔NHWC transposes only in
+its first conv (one input channel) and copies no activation of the conv
+stack; HTS-AT's train
 pass through CUDA graphs takes the eager steps. HTS-AT's window-attention
 kernels (``ops.window_attention``) are held to float64 beside their plain
 version at the model's four stage shapes and smaller ones, repeat their
@@ -26,6 +30,7 @@ what they do not take, and serve ``remat`` and the eval forward. This
 file imports nothing of the JAX package.
 """
 
+import collections
 import contextlib
 
 import numpy as np
@@ -388,12 +393,15 @@ def _sums_close(got, x64_terms):
         float(((got.double() - want).abs() / mag).max())
 
 
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("act", bn_act.ACTS)
 @pytest.mark.parametrize("shape", BLOCK_SHAPES, ids=lambda s: f"{s[2]}x{s[3]}x{s[1]}")
-def test_bn_act_kernels_match_plain(cuda, shape, act, dtype):
+def test_bn_act_kernels_match_plain(cuda, shape, act, dtype, layout):
     """K1-K4 against the plain versions at each conv-stack block's shape
-    (batch 8). Reductions: within 1e-5 of each channel's sum of magnitudes
+    (batch 8), on the NCHW kernels and on the channels-last ones (``x`` and
+    ``dy`` channels-last; ``y`` and ``dx`` come back so). Reductions:
+    within 1e-5 of each channel's sum of magnitudes
     of the float64 sums. Elementwise outputs: 2 ulp of bf16, or 1e-5 of
     float32, away from ReLU's kink (the kernels' fused multiply-add and the
     plain version's two roundings may put a point within 1e-4 of it on
@@ -401,6 +409,10 @@ def test_bn_act_kernels_match_plain(cuda, shape, act, dtype):
     (``bn_act.grad_x_mismatch``), where ``g`` is 0 at ``c₁ + c₂·x``'s own
     scale. Reductions repeat bit for bit."""
     x, a, b, dy, gs = _bn_inputs(shape, dtype, act, cuda)
+    if layout == "nhwc":
+        x = x.contiguous(memory_format=torch.channels_last)
+        dy = dy.contiguous(memory_format=torch.channels_last)
+    assert bn_act.channels_last(x) == (layout == "nhwc")
     x64, dy64 = x.double(), dy.double()
     a64, b64, gs64 = a.double(), b.double(), gs.double()
     s1 = bn_act.stats_cuda(x)
@@ -415,12 +427,13 @@ def test_bn_act_kernels_match_plain(cuda, shape, act, dtype):
     away = (bn_act._z(x64, a64, b64).abs() > 1e-4) | (act == "none")
     y1, y0 = bn_act.apply_cuda(x, a, b, act), bn_act.apply_plain(x, a, b, act)
     assert y1.dtype == dtype and y1.shape == y0.shape
+    assert bn_act.channels_last(y1) == (layout == "nhwc")
     keep = away if act != "relu_pool" else torch.ones_like(y1, dtype=torch.bool)
     torch.testing.assert_close(y1.float()[keep], y0.float()[keep], rtol=rtol,
                                atol=1e-5)
     d1 = bn_act.grad_x_cuda(dy, x, a, b, gs, act)
     d0 = bn_act.grad_x_plain(dy, x, a, b, gs, act)
-    assert d1.dtype == dtype
+    assert d1.dtype == dtype and d1.stride() == x.stride()
     torch.testing.assert_close(d1.float()[away], d0.float()[away], rtol=rtol,
                                atol=1e-5)
     regions = bn_act.grad_x_mismatch(
@@ -434,10 +447,20 @@ def test_bn_act_kernels_match_plain(cuda, shape, act, dtype):
 
 def test_bn_act_kernels_reject_bad_inputs(cuda):
     x, a, b, dy, gs = _bn_inputs((2, 4, 6, 8), torch.bfloat16, "relu", cuda)
+    cl = torch.channels_last
+    # channels-last is the conv stack's layout: taken, and y keeps it
+    torch.testing.assert_close(bn_act.stats_cuda(x.contiguous(memory_format=cl)),
+                               bn_act.stats_cuda(x), rtol=1e-6, atol=1e-6)
+    assert bn_act.channels_last(bn_act.apply_cuda(x.contiguous(memory_format=cl),
+                                                  a, b, "relu"))
+    # [B, T, C, F] in memory: neither NCHW nor channels-last
+    btcf = x.transpose(1, 2).contiguous().transpose(1, 2)
     for fn, args, err in (
             (bn_act.stats_cuda, (x.cpu(),), ValueError),
             (bn_act.stats_cuda, (x.transpose(2, 3),), ValueError),
-            (bn_act.stats_cuda, (x.to(memory_format=torch.channels_last),), ValueError),
+            (bn_act.stats_cuda, (btcf,), ValueError),
+            (bn_act.grad_stats_cuda, (dy, x.contiguous(memory_format=cl), a, b, "relu"),
+             ValueError),
             (bn_act.stats_cuda, (x.half(),), TypeError),
             (bn_act.stats_cuda, (x.double(),), TypeError),
             (bn_act.stats_cuda, (x[0],), ValueError),
@@ -470,13 +493,66 @@ def test_train_step_runs_every_batchnorm_through_the_kernels(cuda, model_type, c
     torch.cuda.synchronize()
     got = {k: trace.counters().get(k, 0) - before.get(k, 0)
            for k in ("ops.bn_act.calls", "ops.bn_act.plain_calls",
-                     "ops.bn_act.launches")}
+                     "ops.bn_act.launches", "ops.bn_act.channels_last_calls")}
     # forward: 2 + 1 launches a call; backward: 2 + 1, the pool's tail on an
-    # odd plane (101 frames, then 50, 25, 12: the tail in blocks 1 and 3)
+    # odd plane (101 frames, then 50, 25, 12: the tail in blocks 1 and 3);
+    # every call on the channels-last kernels
     tails = 2 if model_type.startswith("Cnn_9layers_Gru") else 0
     assert got == {"ops.bn_act.calls": calls, "ops.bn_act.plain_calls": 0,
-                   "ops.bn_act.launches": 6 * calls + tails}
+                   "ops.bn_act.launches": 6 * calls + tails,
+                   "ops.bn_act.channels_last_calls": calls}
     assert np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.parametrize("model_type", ["Cnn_9layers_Gru_FrameAtt",
+                                        "Cnn_9layers_Glu_AttPooling"])
+def test_conv_stack_step_transposes_only_for_the_first_conv(cuda, model_type):
+    """A bf16 train step of the full-width flagship and GLU, profiled: the
+    BatchNorm kernels ran, and cuDNN's ``nchwToNhwc`` / ``nhwcToNchw``
+    kernels run only in the first conv's forward and weight gradient, whose
+    one-channel input cuDNN lays out for its NHWC kernels itself (2 + 1
+    launches a first conv at batch 128, 2 + 2 at this batch); no op copies
+    an activation of the stack (a
+    4-D tensor of the batch's rows and one of the stack's widths): no
+    transpose moved elsewhere."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = get_model(model_type, dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(model, device=cuda)
+    step = train.make_train_step(model, state, mixup_alpha=1.0)
+    rng = np.random.RandomState(0)
+    batch = 6
+    x = torch.from_numpy(rng.randn(batch, 1001, 64).astype(np.float32))
+    y = (rng.rand(batch, 17) < 0.2).astype(np.float32)
+    step(x, y)                                              # builds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(x, y)
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("sedx_bn_" in k for k in kernels), sorted(set(kernels))
+    first = [batch, 1, 1001, 64]
+    transposes = collections.Counter()
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            for k in e.kernels:
+                if "nchwToNhwc" in k.name or "nhwcToNchw" in k.name:
+                    conv_in = (e.input_shapes[0] if e.name == "aten::cudnn_convolution"
+                               else e.input_shapes[1])
+                    transposes[e.name, conv_in == first] += 1
+    assert set(transposes) <= {("aten::cudnn_convolution", True),
+                               ("aten::convolution_backward", True)}, transposes
+    first_convs = 2 if model_type.endswith("Glu_AttPooling") else 1  # lin, gate
+    assert sum(transposes.values()) <= 4 * first_convs, transposes
+    copies = [(e.name, e.input_shapes[0]) for e in events
+              if e.name in ("aten::copy_", "aten::clone") and e.input_shapes
+              and len(e.input_shapes[0]) == 4 and e.input_shapes[0][0] == batch
+              and e.input_shapes[0][1] in model.channels]
+    assert copies == [], copies
 
 
 def test_glu_remat_moves_the_running_statistics_once_a_step(cuda):
