@@ -212,12 +212,29 @@ random weights, in phases that each raise on failure:
    zeroed before each reading: 48 kernel launches a step, capturing the
    CUDA graphs and replaying them, 60 under ``remat`` and 12 an eval
    forward. It prints the ``window_attention`` JSON line.
+17. (run after phase 16) Audio Mamba's selective-scan kernels
+   (``ops.selective_scan``, ``csrc/selective_scan.cu``): their build and
+   registers; at the cell's shape ``[128, 253, 1536]`` in bf16, both
+   directions, the forward and backward kernels and the plain version on
+   the same inputs, each against the function in float64
+   (``selective_scan.mismatch``, the yardstick and the plain version in
+   blocks of 16 rows: ``selective_scan.plain_grads``): the kernels' gap at
+   most twice the plain version's, or 1e-5, on the output and every
+   gradient, the backward repeated bit for bit, 3 launches; each kernel's
+   time by CUDA events and the plain version's, against the function's
+   least bytes a block from ``benchmark/counts/aum.py:scan_bytes`` at 3.35
+   TB/s; last AuM-B at the published widths in bf16 through
+   ``train.make_train_step`` at batch 128, host-fed, counters zeroed
+   before each reading: 48 launches a step capturing the CUDA graphs, 48
+   replaying them, 24 an eval forward, no plain call.
 
 It prints the ``kernels`` JSON line (``launches`` of phases 5 and 7,
 ``launches_cli`` of phase 8, ``launches_zoo`` of phase 9, ``launches_runme``
 of phase 10, ``launches_parallel`` of phase 11, ``launches_tools`` of phase
 12, ``launches_entry`` of phase 13, ``launches_resume`` of phase 14; a
-``window_attention`` entry with phase 16's launches on HTS-AT's path; and a
+``window_attention`` entry with phase 16's launches on HTS-AT's path; a
+``selective_scan`` entry with phase 17's checks, times, ``bound_ms`` and
+launches on AuM-B's path; and a
 ``bn_act`` entry with the ``ops.bn_act`` counters of each phase after 15
 (``channels_last_calls`` among them: 8 a crnn step, 16 a GLU step),
 its tools' children included, which fails the run if a train-mode
@@ -243,6 +260,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -1023,6 +1041,173 @@ def _wa_main_path(torch, card):
     return got
 
 
+# Audio Mamba's scan at the cell's shape (AuM-B's 253 tokens, E = 1536), and
+# the row blocks its float64 yardstick runs in (the loop's states, 0.8 GB a
+# tensor over the tokens at 16 rows, not 6.4 GB at 128)
+SS_SHAPE = (TRAIN_BATCH, 253, 1536)
+SS_ROWS = 16
+
+
+def _ss_case(torch, shape, dtype, dev, seed):
+    """The scan's inputs as ``models.aum``'s mixer makes them (``B`` and
+    ``C`` slices of one ``x_proj`` output of width 80, ``Δraw`` around a
+    trained Δ's range, ``A_log`` about ``log(1..16)``) and a ``dout``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)     # noqa: E731
+    batch, length, width = shape
+    dbl_f, dbl_b = r(batch, length, 80).to(dtype), r(batch, length, 80).to(dtype)
+    a_log = torch.log(torch.arange(1.0, 17.0, device=dev)).expand(width, -1) + 0.3 * r(width, 16)
+    args = (r(*shape).to(dtype), r(*shape).to(dtype), (r(*shape) - 2).to(dtype),
+            (r(*shape) - 2).to(dtype), dbl_f[..., 48:64], dbl_f[..., 64:], dbl_b[..., 48:64],
+            dbl_b[..., 64:], r(*shape).to(dtype), a_log.contiguous(),
+            (a_log + 0.1 * r(width, 16)).contiguous(), r(width), r(width),
+            0.5 * r(width) - 3, 0.5 * r(width) - 3)
+    return args, r(*shape).to(dtype)
+
+
+def _aum_counts():
+    """``benchmark/counts/aum.py`` and the ``aum`` configuration's
+    ``model`` group, the benchmark's frozen count of the scan's bytes."""
+    import importlib
+
+    root = str(Path(__file__).resolve().parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    counts = importlib.import_module("benchmark.counts.aum")
+    arch = json.loads((Path(root) / "benchmark" / "configs" / "aum.json").read_text())["model"]
+    return counts, arch
+
+
+def phase_selective_scan(torch, card):
+    """Phase 17 (see the module docstring): returns the ``kernels`` line's
+    ``selective_scan`` entry."""
+    from sound_event_detection_dcase2017_task4_torch.ops import selective_scan as ss
+
+    t0 = time.perf_counter()
+    ss.LIBRARY.load()
+    log = ss.LIBRARY.log or ""
+    regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(n) > 0 for n in re.findall(r"(\d+) bytes spill stores", log))
+    print(f"[selective_scan] ops/csrc/selective_scan.cu for sm_90a in "
+          f"{time.perf_counter() - t0:.2f} s; {len(regs)} kernels, registers "
+          f"{min(regs, default=0)}-{max(regs, default=0)}, {spills} with spills")
+    for line in log.splitlines():
+        if "Used" in line or "spill" in line:
+            print(f"[selective_scan] ptxas {line.strip()}")
+    dev = torch.device("cuda")
+    shape = "x".join(map(str, SS_SHAPE))
+
+    # the kernels and the plain version on the same inputs, both against
+    # float64, the plain version and float64 in row blocks
+    _zero_launches()
+    args, dout = _ss_case(torch, SS_SHAPE, torch.bfloat16, dev, 0)
+    out, ysum = ss.forward_cuda(*args)
+    grads = ss.backward_cuda(args, ysum, dout)
+    again = ss.backward_cuda(args, ysum, dout)
+    torch.cuda.synchronize()
+    launched = _launches("selective_scan")
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+    t0 = time.perf_counter()
+    got = ss.mismatch((out, *grads), args, dout, SS_ROWS)
+    del out, grads
+    plain = ss.mismatch(ss.plain_grads(args, dout, SS_ROWS), args, dout, SS_ROWS)
+    limit = {k: max(2 * v, 1e-5) for k, v in plain.items()}
+    print(f"[selective_scan] [{shape}] bf16, both directions, against float64 "
+          f"({time.perf_counter() - t0:.1f} s), kernels | plain version | limit: "
+          + ", ".join(f"{k} {got[k]:.3g} | {plain[k]:.3g} | {limit[k]:.3g}" for k in got)
+          + f"; backward repeats bit for bit: {same}; launches {launched}")
+    if any(got[k] > limit[k] for k in got) or not same or launched != 3:
+        raise AssertionError(f"selective scan at [{shape}]: {got} against {limit}, "
+                             f"repeat {same}, launches {launched}")
+
+    # each kernel alone by CUDA events, the plain version beside them, and
+    # the function's least bytes (the benchmark's count) as the bound
+    counts, arch = _aum_counts()
+    dims = counts.dims(arch)
+    if (dims["L"], dims["E"]) != SS_SHAPE[1:]:
+        raise AssertionError(f"the aum configuration's tokens and width {dims} are not "
+                             f"{SS_SHAPE[1:]}")
+    bound_ms = counts.bound_s(counts.scan_bytes(arch, SS_SHAPE[0], 2)) / arch["depth"] * 1e3
+    fwd_ms = _cuda_ms(torch, lambda: ss.forward_cuda(*args))
+    bwd_ms = _cuda_ms(torch, lambda: ss.backward_cuda(args, ysum, dout))
+    plain_ms = _cuda_ms(torch, lambda: ss.plain_grads(args, dout, SS_ROWS), iters=1,
+                        warmup=1)
+    kernel_ms = fwd_ms + bwd_ms
+    print(f"[selective_scan] [{shape}] bf16 a block, ms (CUDA events): forward "
+          f"{fwd_ms:.4f}, backward {bwd_ms:.4f}, both {kernel_ms:.4f}; the plain version "
+          f"forward and backward {plain_ms:.1f}; least bytes {bound_ms:.4f} ms at "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s, the kernels at "
+          f"{100 * bound_ms / kernel_ms:.2f}%; a step's {arch['depth']} blocks "
+          f"{arch['depth'] * kernel_ms:.2f} ms [{card}]")
+    del args, dout, ysum
+    entry = {"name": "selective_scan", "route": "cuda",
+             "source": "sound_event_detection_dcase2017_task4_torch/ops/csrc/"
+                       "selective_scan.cu",
+             "shape": list(SS_SHAPE), "dtype": "bfloat16",
+             "checks": {"kernels": got, "plain": plain, "repeat_equal": same},
+             "kernel_ms": {"forward": fwd_ms, "backward": bwd_ms}, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "roofline_pct": 100 * bound_ms / kernel_ms}
+    entry.update(_ss_main_path(torch, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return entry
+
+
+def _ss_main_path(torch, card):
+    """AuM-B at the published widths in bf16 through the port's own train
+    step (``train.make_train_step``, host-fed waveforms at batch
+    ``TRAIN_BATCH``, mixup on): the scan's launches and plain calls in
+    each of two steps (the first captures the CUDA graphs, the second
+    replays them) and in an eval forward of ``BATCH`` clips, each read
+    just after the counters were zeroed."""
+    import sound_event_detection_dcase2017_task4_torch as sedt
+    from sound_event_detection_dcase2017_task4_torch import trace, train
+    from sound_event_detection_dcase2017_task4_torch.ops import stft
+
+    cfg = sedt.config.DEFAULT
+    scalar = (np.full(cfg.mel_bins, -30.0, np.float32),
+              np.full(cfg.mel_bins, 15.0, np.float32))
+    rng = np.random.default_rng(23)
+    x = (0.1 * rng.standard_normal((TRAIN_BATCH, cfg.clip_samples))).astype(np.float32)
+    y = (rng.random((TRAIN_BATCH, cfg.classes_num)) < 0.07).astype(np.float32)
+    model = sedt.get_model("AudioMamba", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(model, cfg, seed=0)        # device → cuda
+    step = train.make_train_step(model, state, frontend=stft.make_logmel_fn(cfg),
+                                 scalar=scalar, mixup_alpha=1.0, check_numerics=True)
+    blocks = len(model.layers)
+    got, plain = {"train": []}, 0
+    for _ in range(2):
+        _zero_launches()
+        m = step(x, y)
+        torch.cuda.synchronize()
+        got["train"].append(_launches("selective_scan"))
+        plain += trace.counters().get("ops.selective_scan.plain_calls", 0)
+        if int(m["nonfinite_count"]) or not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"AuM-B train step: loss {float(m['loss'])}, "
+                                 f"{int(m['nonfinite_count'])} non-finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    evaluate = train.make_eval_step(model, frontend=stft.make_logmel_fn(cfg), scalar=scalar)
+    _zero_launches()
+    evaluate(x[:BATCH])
+    torch.cuda.synchronize()
+    got["eval"] = [_launches("selective_scan")]
+    plain += trace.counters().get("ops.selective_scan.plain_calls", 0)
+    del model, state, step, evaluate
+    _zero_launches()
+    print(f"[selective_scan] AuM-B bf16 at the published widths through "
+          f"make_train_step, batch {TRAIN_BATCH}: kernel launches a train step "
+          f"{got['train']} (capture, replay), an eval forward of {BATCH} clips "
+          f"{got['eval']}, plain calls {plain}; peak {peak:.2f} GiB so far [{card}]")
+    want = {"train": [2 * blocks, 2 * blocks], "eval": [blocks]}
+    if got != want or plain:
+        raise AssertionError(f"selective scan on AuM-B's path: {got}, not {want}; "
+                             f"plain calls {plain}")
+    return {"launches": got["train"][0], "launches_replay": got["train"][1],
+            "launches_eval": got["eval"][0], "plain_calls": plain}
+
+
 def _launches(entry):
     """The kernel entry's launches since they were last zeroed (the port's
     counter ``ops.<entry>.launches``)."""
@@ -1038,7 +1223,7 @@ def _launches(entry):
 # took the composite in this process, which must stay 0
 _BN_KEYS = ("calls", "plain_calls", "launches", "channels_last_calls")
 _BN_TALLY: dict[str, dict[str, int]] = {}
-_BN_PHASE = ["phases_1_to_4_15_and_16"]
+_BN_PHASE = ["phases_1_to_4_and_15_to_17"]
 
 
 def _bn_tally(counters=None):
@@ -3576,6 +3761,7 @@ def main() -> int:
     phase_gru(torch, card)
     phase_bn_act(torch, card)
     wa = phase_window_attention(torch, card)
+    ss_kernel = phase_selective_scan(torch, card)
     _watch_batchnorm()
     _bn_phase("slice")
     kernel["launches"] = phase_slice(torch, sedt, card)
@@ -3639,7 +3825,7 @@ def main() -> int:
                  "launches_replay": wa["main_path"]["train"][1],
                  "launches_remat": wa["main_path"]["remat"][0],
                  "launches_eval": wa["main_path"]["eval"][0]}
-    print(json.dumps({"kernels": [kernel, bank_kernel, bn_kernel, wa_kernel]}))
+    print(json.dumps({"kernels": [kernel, bank_kernel, bn_kernel, wa_kernel, ss_kernel]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -23,6 +23,11 @@ own (one copy of them all). The graphs read the parameters and buffers
 where they were at the capture: a change in place is seen, a tensor moved
 elsewhere (``Module.to``) drops the captures and makes new ones.
 
+A call that falls back to the eager pass (a profiler records) first drops
+the captures (:meth:`TrainGraphs.release`), so that a traced pass of a
+model whose activations fill much of the card does not hold them twice;
+the next call under no profiler captures anew.
+
 The port's counters (``trace.count``) that one forward and one backward
 add while they are captured are added again at each replay, and the
 warm-up's are taken back, so a counter reads as it would in eager mode.
@@ -163,6 +168,13 @@ class TrainGraphs:
             cap = self._captured[key] = _Captured(self.module, self.fn, inputs)
         return dict(zip(cap.keys, _Replay.apply(cap, *inputs, *cap.params)))
 
+    def release(self) -> None:
+        """Drop every capture: their memory (a whole pass's activations)
+        goes back to the allocator for other work, and the next call
+        captures anew."""
+        self._captured.clear()
+        self._where = ()
+
 
 class _Graphed:
     """A split model's train forward through :class:`TrainGraphs`: the
@@ -183,6 +195,9 @@ class _Graphed:
 
     def __call__(self, x: torch.Tensor, generator: torch.Generator) -> dict:
         if not x.is_cuda or trace.recording():
+            # an eager pass beside the captures would hold the activations
+            # twice: give the captures' memory back first
+            self.graphs.release()
             return self.model(x, train=True, generator=generator)
         drawn = [m for m in self.model.draw_masks(x.shape[0], generator,
                                                   None, x.device) if m is not None]

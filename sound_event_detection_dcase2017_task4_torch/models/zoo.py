@@ -43,6 +43,7 @@ from ..config import classes_num as _default_classes
 from .blocks import (AttBlock, ConvBlock, Dense, Dropout, GLUBlock, LayerNorm,
                      LecunDense, dropout, frozen_statistics, interpolate,
                      pad_framewise_output)
+from .aum import AudioMamba
 from .htsat import HTSAT
 
 __all__ = ["BiGRU", "SelfAttention", "TransformerEncoderLayer", "SedCnn",
@@ -354,7 +355,8 @@ MODEL_REGISTRY: dict[str, dict] = {
 
 # Models of the port alone (no JAX counterpart; ``MODEL_REGISTRY`` stays
 # the JAX package's, name for name): ``--model_type`` → constructor.
-PORT_REGISTRY: dict[str, Callable[..., nn.Module]] = {"HTSAT": HTSAT}
+PORT_REGISTRY: dict[str, Callable[..., nn.Module]] = {"HTSAT": HTSAT,
+                                                     "AudioMamba": AudioMamba}
 
 
 def get_model(model_type: str, classes_num: int = _default_classes,

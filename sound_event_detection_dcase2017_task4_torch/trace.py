@@ -20,14 +20,20 @@ train --profile_dir``, or a benchmark's tracer). Names are dotted,
 * ``sedx.ops.window_attention`` and ``sedx.ops.window_attention.backward``:
   HTS-AT's window-attention core (``ops.window_attention``), forward and,
   on autograd's thread, backward: on a card around its kernels' launches
-  (one forward, three backward), on the CPU around its plain version.
+  (one forward, three backward), on the CPU around its plain version;
+* ``sedx.ops.selective_scan`` and ``sedx.ops.selective_scan.backward``:
+  Audio Mamba's bidirectional selective scan (``ops.selective_scan``),
+  forward and, on autograd's thread, backward, the same way (one kernel
+  launch each on a card).
 
 A device operation belongs to the innermost step span (``sedx.train.*``,
 ``sedx.parallel.*``) open when it was launched, on any thread. The
 benchmark's HTS-AT cell gives each operation to the innermost ``sedx.*``
 span open on the thread that launched it, which is how
-``window_attention_roofline.htsat`` reads the two window-attention spans.
-HTS-AT's train pass in the train step replays CUDA graphs on a card,
+``window_attention_roofline.htsat`` reads the two window-attention spans,
+and the Audio Mamba cell's ``selective_scan_roofline.aum`` the two
+selective-scan spans. HTS-AT's and Audio Mamba's train passes in the train
+step replay CUDA graphs on a card,
 inside which no span is recorded, unless a profiler records
 (:func:`recording`): ``models.train_graphs.train_forward``, the one place
 that decides, keeps a traced pass eager.
@@ -48,6 +54,12 @@ kernels: 8 a crnn step, 16 a GLU step, 0 an HTS-AT step),
 replay adds what its capture counted), ``ops.window_attention.launches``
 (its kernels' launches, 1 a forward and 3 a backward, on a card only: the
 count that shows the kernels ran),
+``ops.selective_scan.calls``, ``ops.selective_scan.tokens`` and
+``ops.selective_scan.plain_calls`` (the scan's forwards, their rows ×
+tokens, and those on the plain version, the CPU's: 24, 253 a clip and 0 a
+forward of the published Audio Mamba on a card; a graph's replay adds what
+its capture counted), ``ops.selective_scan.launches`` (its kernels'
+launches, 1 a forward and 1 a backward, on a card only),
 ``parallel.<fn>.calls`` and ``parallel.<fn>.bytes`` (collectives run, and the bytes this rank put into
 them). This module
 adds no exporter, environment variable or flag.

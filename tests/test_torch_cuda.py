@@ -26,8 +26,14 @@ pass through CUDA graphs takes the eager steps. HTS-AT's window-attention
 kernels (``ops.window_attention``) are held to float64 beside their plain
 version at the model's four stage shapes and smaller ones, repeat their
 backward bit for bit, replay in a CUDA graph, count their launches, refuse
-what they do not take, and serve ``remat`` and the eval forward. This
-file imports nothing of the JAX package.
+what they do not take, and serve ``remat`` and the eval forward. Audio
+Mamba's selective-scan kernels (``ops.selective_scan``) are held to
+float64 beside their plain version at the published widths and smaller
+ones, repeat their backward bit for bit, replay in a CUDA graph, count
+their launches and refuse what they do not take; Audio Mamba's train pass
+through CUDA graphs takes the eager steps, and at the published widths
+runs every scan on the kernels. This file imports nothing of the JAX
+package.
 """
 
 import collections
@@ -832,3 +838,197 @@ def test_htsat_core_serves_remat_and_eval_on_the_card(cuda):
         gap = float((got[k].cpu().double() - want[k].double()).norm()
                     / want[k].double().norm())
         assert gap < 5e-5, (k, gap)
+
+
+# --- Audio Mamba's selective scan (ops.selective_scan) -------------------------
+
+# (batch, tokens, width, dtype): AuM-B's blocks (253 tokens, E = 1536) in
+# bf16, a float32 case, and a sequence that ends inside a chunk
+SS_CASES = [(2, 253, 1536, torch.bfloat16), (2, 37, 128, torch.float32),
+            (3, 37, 128, torch.bfloat16), (1, 5, 64, torch.float32)]
+
+
+def _ss_inputs(batch, length, width, dtype, dev, seed=0):
+    """The function's inputs as ``Mixer.forward`` makes them (``B`` and
+    ``C`` slices of one ``x_proj`` output of width 80), ``Δraw`` around a
+    trained Δ's range, ``A_log`` about ``log(1..16)``, and ``dout``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)     # noqa: E731
+    shape = (batch, length, width)
+    dbl_f, dbl_b = r(batch, length, 80).to(dtype), r(batch, length, 80).to(dtype)
+    a_log = torch.log(torch.arange(1.0, 17.0, device=dev)).expand(width, -1) + 0.3 * r(width, 16)
+    args = (r(*shape).to(dtype), r(*shape).to(dtype), (r(*shape) - 2).to(dtype),
+            (r(*shape) - 2).to(dtype), dbl_f[..., 48:64], dbl_f[..., 64:], dbl_b[..., 48:64],
+            dbl_b[..., 64:], r(*shape).to(dtype), a_log.contiguous(),
+            (a_log + 0.1 * r(width, 16)).contiguous(), r(width), r(width),
+            0.5 * r(width) - 3, 0.5 * r(width) - 3)
+    return args, r(*shape).to(dtype)
+
+
+@pytest.mark.parametrize("case", SS_CASES, ids=lambda c: "b{}-l{}-e{}-{}".format(
+    c[0], c[1], c[2], str(c[3])[6:]))
+def test_selective_scan_kernels_match_plain(cuda, case):
+    """The output and every input's gradient (both directions, dz, dA_log,
+    dD, dbdt) of the kernels and of the plain version, both against the
+    function in float64 (``selective_scan.mismatch``, a relative gap in
+    norm): the kernels' gap at most twice the plain version's, or 1e-5 (a
+    float32 sum over the rows and tokens in another order); a second
+    backward gives the same bits."""
+    from sound_event_detection_dcase2017_task4_torch.ops import selective_scan as ss
+
+    args, dout = _ss_inputs(*case, cuda)
+    out, ysum = ss.forward_cuda(*args)
+    grads = ss.backward_cuda(args, ysum, dout)
+    torch.cuda.synchronize()
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    assert all(g.shape == a.shape and g.dtype == a.dtype for g, a in zip(grads, args))
+    got = ss.mismatch((out, *grads), args, dout)
+    plain = ss.mismatch((ss.forward_plain(*args), *ss.backward_plain(args, dout)), args, dout)
+    assert all(got[k] <= max(2 * plain[k], 1e-5) for k in got), (got, plain)
+    again = ss.backward_cuda(args, ysum, dout)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+def test_selective_scan_counts_launches_and_replays_in_a_graph(cuda):
+    """Through autograd: 1 launch a forward and 1 a backward, no plain call;
+    a forward and backward captured in a CUDA graph, replayed on new
+    inputs, give the bits of an eager call on them."""
+    from sound_event_detection_dcase2017_task4_torch.ops import selective_scan as ss
+
+    def step(*args):
+        leaves, dout = args[:-1], args[-1]
+        out = ss.selective_scan(*leaves)
+        return (out, *torch.autograd.grad(out, leaves, dout))
+
+    def leaves(seed):
+        args, dout = _ss_inputs(2, 37, 128, torch.bfloat16, cuda, seed)
+        return [t.detach().clone().requires_grad_(True) for t in args] + [dout]
+
+    before = trace.counters()
+    eager = step(*leaves(2))
+    moved = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+             if k.startswith("ops.selective_scan.") and v != before.get(k, 0)}
+    assert moved == {"ops.selective_scan.calls": 1, "ops.selective_scan.tokens": 74,
+                     "ops.selective_scan.launches": 2}
+    static = leaves(1)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step(*static)
+    with torch.no_grad():
+        for s, a in zip(static, leaves(2)):
+            s.copy_(a)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(out, eager):
+        assert torch.equal(a, b)
+
+
+def test_selective_scan_rejects_bad_inputs(cuda):
+    """Float64, a width that is not a multiple of 64, a strided ``u`` and a
+    ``B`` strided over the states raise."""
+    from sound_event_detection_dcase2017_task4_torch.ops import selective_scan as ss
+
+    args, _ = _ss_inputs(1, 9, 128, torch.bfloat16, cuda)
+    odd, _ = _ss_inputs(1, 9, 96, torch.bfloat16, cuda)
+    strided = list(args)
+    strided[0] = torch.zeros(1, 9, 256, device=cuda, dtype=torch.bfloat16)[..., ::2]
+    skew = list(args)
+    skew[4] = torch.zeros(1, 9, 32, device=cuda, dtype=torch.bfloat16)[..., ::2]
+    for bad, err in (([t.double() for t in args], TypeError), (odd, ValueError),
+                     (strided, ValueError), (skew, ValueError)):
+        with pytest.raises(err):
+            ss.forward_cuda(*bad)
+
+
+def _aum_small(dtype=torch.float32, **kw):
+    from sound_event_detection_dcase2017_task4_torch.models import AudioMamba
+
+    return AudioMamba(classes_num=5, mel_bins=32, frames=100, patch=16, embed=32, depth=2,
+                      drop_path=0.5, dtype=dtype, generator=torch.Generator().manual_seed(0),
+                      **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_aum_train_graphs_replay_the_eager_steps(cuda, monkeypatch, dtype):
+    """A small Audio Mamba (width 32, E = 64, 2 blocks, drop-path 0.5) takes
+    3 mixup steps through CUDA graphs (the step's forward from
+    ``models.train_graphs.train_forward``) and, from the same weights and
+    generators, eagerly (a recording profiler keeps that forward eager):
+    losses, gradient norms and parameters agree to rtol 1e-5 (the scan
+    kernels and the rest of the pass are deterministic: bit for bit in
+    practice), the port's counters move by the same amounts (2 scan
+    launches a block a step, no plain call), and a further call of the
+    step's forward agrees."""
+    from sound_event_detection_dcase2017_task4_torch.models import train_graphs
+
+    made = []
+    real = train_graphs.train_forward
+    monkeypatch.setattr(train_graphs, "train_forward",
+                        lambda *a: made.append(real(*a)) or made[-1])
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(4, 100, 32).astype(np.float32))
+    y = (rng.rand(4, 5) < 0.3).astype(np.float32)
+    runs = []
+    for graphs in (False, True):
+        model = _aum_small(dtype)
+        state = train.create_train_state(model, device=cuda)
+        step = train.make_train_step(model, state, mixup_alpha=1.0)
+        with (contextlib.nullcontext() if graphs else
+              torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])):
+            before = trace.counters()
+            metrics = [step(x, y) for _ in range(3)]
+            torch.cuda.synchronize()
+            moved = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+                     if k.startswith("ops.") and v != before.get(k, 0)}
+            forward = made[-1]
+            out = forward(x.to(cuda), generator=torch.Generator(device=cuda).manual_seed(9))
+        runs.append(([(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     moved, {k: v.detach().float().cpu() for k, v in out.items()},
+                     forward.graphs._captured))
+    (eager, s0, c0, o0, cap0), (graphed, s1, c1, o1, cap1) = runs
+    assert not cap0 and len(cap1) == 1
+    np.testing.assert_allclose(graphed, eager, rtol=1e-5)
+    for k in s0:
+        torch.testing.assert_close(s1[k], s0[k], rtol=1e-5, atol=1e-6, msg=k)
+    assert c1 == c0
+    assert c0["ops.selective_scan.launches"] == 3 * 2 * 2
+    assert c0["ops.selective_scan.calls"] == 3 * 2
+    assert "ops.selective_scan.plain_calls" not in c0
+    for k in o0:
+        torch.testing.assert_close(o1[k], o0[k], rtol=1e-5, atol=1e-6, msg=k)
+
+
+def test_aum_main_path_at_published_widths_runs_the_kernels(cuda):
+    """AuM-B at its published widths through ``train.make_train_step`` in
+    bf16 (batch 8, 10 s log-mel): the first step captures the CUDA graphs,
+    the next replays them; each step counts 24 scan calls, 48 kernel
+    launches and no plain call, and its loss is finite; an eval forward
+    under ``no_grad`` launches 24."""
+    model = get_model("AudioMamba", dtype=torch.bfloat16,
+                      generator=torch.Generator().manual_seed(0))
+    state = train.create_train_state(model, device=cuda)
+    step = train.make_train_step(model, state, mixup_alpha=1.0)
+    rng = np.random.RandomState(1)
+    for _ in range(2):
+        x = torch.from_numpy(rng.randn(8, 1001, 64).astype(np.float32))
+        before = trace.counters()
+        loss = float(step(x, (rng.rand(8, 17) < 0.1).astype(np.float32))["loss"])
+        torch.cuda.synchronize()
+        moved = {k: v - before.get(k, 0) for k, v in trace.counters().items()
+                 if k.startswith("ops.selective_scan.") and v != before.get(k, 0)}
+        assert np.isfinite(loss)
+        assert moved == {"ops.selective_scan.calls": 24, "ops.selective_scan.launches": 48,
+                         "ops.selective_scan.tokens": 24 * 8 * 253}, moved
+    model.eval()
+    before = _launches("selective_scan")
+    with torch.no_grad():
+        model(x.to(cuda))
+    torch.cuda.synchronize()
+    assert _launches("selective_scan") - before == 24

@@ -170,7 +170,7 @@ def test_published_model_matches_the_reference_and_counts_its_calls():
 
 def test_registry_builds_the_published_model():
     m = get_model("HTSAT")
-    assert isinstance(m, HTSAT) and set(PORT_REGISTRY) == {"HTSAT"}
+    assert isinstance(m, HTSAT) and set(PORT_REGISTRY) == {"HTSAT", "AudioMamba"}
     assert "HTSAT" not in MODEL_REGISTRY
     assert sum(p.numel() for p in m.parameters()) == 27_612_841
     shapes = {k: tuple(v.shape) for k, v in m.state_dict().items()}

@@ -3,8 +3,8 @@
 by a fake library whose entries record their declarations and return
 what a test gives them.
 
-Each of ``ops.logmel_cuda``, ``ops.bn_act`` and ``ops.window_attention``
-declares every exported entry of its ``.cu`` source with the source's
+Each of ``ops.logmel_cuda``, ``ops.bn_act``, ``ops.window_attention`` and
+``ops.selective_scan`` declares every exported entry of its ``.cu`` source with the source's
 argument and return types, builds once under concurrent first calls, and
 turns a non-zero code into ``RuntimeError`` with the library's own
 message; a library whose block constants do not match ``logmel_cuda``'s
@@ -26,7 +26,7 @@ import torch
 from sound_event_detection_dcase2017_task4_torch.ops import nvcc
 
 OPS = "sound_event_detection_dcase2017_task4_torch.ops"
-MODULES = ("logmel_cuda", "bn_act", "window_attention")
+MODULES = ("logmel_cuda", "bn_act", "window_attention", "selective_scan")
 LOGMEL_CONSTS = {"sedx_logmel_frames_per_block": 16,
                  "sedx_logmel_threads_per_frame": 64,
                  "sedx_logmel_frames_in_flight": 4}
